@@ -5,14 +5,15 @@ The mixing payoff is closed-form in (IV, J); the variance scan is the only
 AD-carried part.  Hypothesis: forward mode (7 tangents pushed through the
 scan, no remat/backward pass) beats reverse mode on ratio-to-price.
 
-Run ON TPU (bench env):  cd /root/repo && python benchmarks/greek_mode_experiment.py
+Run from the repo root:  python benchmarks/greek_mode_experiment.py
 """
 
 import datetime as dt
+import os
 import sys
 import time
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 import jax.numpy as jnp
@@ -53,7 +54,7 @@ def best_of(fn, args, reps=6, outer=3):
 
 
 def main():
-    n_pairs, steps = (2**19, 12) if jax.default_backend() == "tpu" else (2**13, 12)
+    n_pairs, steps = (2**19, 12) if jax.default_backend() == "gpu" else (2**13, 12)
     price = build_price(n_pairs, steps)
     params = jnp.array(
         [SPOT, HESTON["V0"], HESTON["kappa"], HESTON["theta"],

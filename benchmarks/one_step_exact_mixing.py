@@ -32,9 +32,10 @@ Usage: python benchmarks/one_step_exact_mixing.py   (CPU, scipy)
 """
 
 import datetime as dt
+import os
 import sys
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 from scipy import special, stats
@@ -231,7 +232,7 @@ def lam_of_eta(eta, newton=3):
 
 def gamma_sp(alpha, z):
     """Gamma(alpha, 1) quantile at Phi(z) by the corrected saddlepoint
-    inversion — the branchless fixed-trip form a TPU kernel can run."""
+    inversion — the branchless fixed-trip form a fused kernel can run."""
     eta0 = z / np.sqrt(alpha)
     lam0 = lam_of_eta(eta0)
     w = lam0 - 1.0
@@ -357,7 +358,7 @@ def segmented_price(market, family, nseg, transition, n, seed):
                 (s2 / m1) * gamma_sp(m1**2 / s2, stats.norm.ppf(u1)), 1e-12)
         elif family in ("gammawh", "gamma3wh"):
             # Wilson-Hilferty: Gamma(k) ~= k*(1 - 1/(9k) + Z/(3 sqrt k))^3,
-            # branchless from ONE normal — what a TPU kernel would sample.
+            # branchless from ONE normal — what a fused kernel would sample.
             if family == "gammawh":
                 k, scale, shift = m1**2 / s2, s2 / m1, 0.0
             else:

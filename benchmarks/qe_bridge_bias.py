@@ -14,13 +14,14 @@ i.e. symmetric endpoint shrinkage + a θ pull — the drift effect exactly
 J = (ΔV − κθΔ + κ·IV)/σ consumes the same IV estimate, so one change
 corrects both channels.
 
-Usage: python benchmarks/qe_bridge_bias.py [steps ...]  (CPU or TPU)
+Usage: python benchmarks/qe_bridge_bias.py [steps ...]  (CPU or GPU)
 """
 
 import datetime as dt
+import os
 import sys
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 import jax.numpy as jnp

@@ -18,7 +18,7 @@ and this file is the evidence.
 
 Usage: python -u benchmarks/rbergomi_barrier_bias.py [hurst=0.1] [N ...]
 
-RECORDED RESULTS (TPU, H=0.1, η=1.5, ρ=−0.7, ξ₀=0.04, down-and-out call
+RECORDED RESULTS (H=0.1, η=1.5, ρ=−0.7, ξ₀=0.04, down-and-out call
 K=100 H=85, 2^16 QMC pairs × 2 seeds/rung):
 
     N=16   p_fine=8.05113   D(N)=−886.96±2.72 e-4
@@ -41,6 +41,7 @@ joint (Euler, bridge) two-exponent model, out of scope.
 """
 
 import datetime as dt
+import os
 import sys
 import time
 
@@ -49,7 +50,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import hedgehog_tpu as hh  # noqa: E402
 from hedgehog_tpu.methods.montecarlo import (  # noqa: E402
     MonteCarlo,

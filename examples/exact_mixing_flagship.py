@@ -5,13 +5,11 @@
 transition and the conditional ∫V | endpoints from its Broadie-Kaya
 Laplace-transform moments, then closes with the conditional Black-Scholes
 formula.  TWO segments suffice for sub-bp bias on the whole stress grid
-(docs/adr/adr-008-conditional-mc.md addendum 2); on TPU `use_kernel=True`
-routes to the fused Pallas kernel (2.56e9 paths/s/chip at 0.28 bp measured,
-BENCH_r04 headline).
+(docs/adr/adr-008-conditional-mc.md addendum 2).
 
 Shows on one market:
 1. price agreement with Carr-Madan at 2 segments (vs 11 QE mixing steps),
-2. QMC composability (same Sobol' stream on the kernel and pure-JAX paths),
+2. QMC composability (the estimator takes a Sobol' stream),
 3. unbiased 7-param greeks via the likelihood-ratio estimator — baked into
    the per-path values, so `jax.grad` through the solve just works (the raw
    pathwise gradient, shown for contrast, would be badly biased).
@@ -56,9 +54,6 @@ p_qe = float(hh.solve(PROB, qe_mix).price)
 print(f"exact mixing, 2 segments : {p_exact:.6f}  ({(p_exact-CM)/CM*1e4:+.2f}bp)")
 print(f"QE mixing,    11 steps   : {p_qe:.6f}  ({(p_qe-CM)/CM*1e4:+.2f}bp)")
 print("(2 segments × 4 draws beats 11 steps × 2 draws on bias AND work)\n")
-
-# On a TPU host HestonExactMixing(use_kernel=True) routes the same estimator
-# to the fused Pallas kernel — same Sobol' stream under qmc=True.
 
 # ---- 2. unbiased greeks (likelihood ratio) -------------------------------
 price, greeks = heston_exact_price_and_greeks(PROB, exact)

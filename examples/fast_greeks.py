@@ -1,4 +1,4 @@
-"""Fast 7-parameter Heston greek vectors: three routes, one answer.
+"""Fast 7-parameter Heston greek vectors: two routes, one answer.
 
 The mixing estimator's per-path value is closed-form in the variance-path
 functionals (IV, J), which makes its full greek vector a FORWARD pass:
@@ -6,12 +6,9 @@ functionals (IV, J), which makes its full greek vector a FORWARD pass:
 1. `jax.grad` through the seeded `solve` (reverse AD — the reference's
    ForwardDiff-through-re-solve pattern, works for every method),
 2. `heston_mixing_price_and_greeks` (forward-mode fast path: tangents ride
-   the variance scan, (spot, rho, rate) close analytically),
-3. [TPU] the fused price+greeks Pallas kernel
-   (`ops.heston_qe_greeks_kernel.heston_qe_mixing_price_and_greeks`),
-   whose price is bit-identical to the serving price kernel.
+   the variance scan, (spot, rho, rate) close analytically).
 
-All three agree; 2 and 3 cost a small multiple of the price alone.
+Both agree; route 2 costs a small multiple of the price alone.
 
 Run: PYTHONPATH=. python examples/fast_greeks.py   (CPU ~20 s)
 """
@@ -20,7 +17,6 @@ import datetime as dt
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 
 import hedgehog_tpu as hh
 from hedgehog_tpu.methods.mixing_greeks import GREEK_ORDER
@@ -62,21 +58,6 @@ def main():
               for k, g in zip(GREEK_ORDER, g1))
     print(f"max rel diff: {rel:.2e}")
     assert rel < 1e-9
-
-    if jax.default_backend() == "tpu":
-        # route 3: fused kernel at serving scale
-        from hedgehog_tpu.ops.heston_qe_greeks_kernel import (
-            heston_qe_mixing_price_and_greeks,
-        )
-
-        T = float(hh.yearfrac(REF, hh.to_ticks(EXPIRY)))
-        p3, g3 = heston_qe_mixing_price_and_greeks(
-            np.log(SPOT), HESTON["V0"], R, HESTON["kappa"], HESTON["theta"],
-            HESTON["sigma"], HESTON["rho"], T / 12, STRIKE,
-            float(np.exp(-R * T)), n_blocks=64, n_batches=4, steps=12, seed=0,
-        )
-        print("kernel price:", float(p3))
-        print("kernel grad7:", np.asarray(g3))
 
 
 if __name__ == "__main__":

@@ -1,7 +1,7 @@
 """Monte Carlo benchmark harness, mirroring reference
 examples/montecarlo_benchmark.jl: exact-BS MC price (5k paths) and LSM
 American put (10k paths × 100 steps, degree 5, antithetic) wall times —
-plus the TPU-era variants (QMC, 100× the path counts).
+plus accelerator-sized variants (QMC, 100× the path counts).
 """
 
 import datetime as dt
@@ -31,7 +31,7 @@ def main():
     t1 = time_fn(f1, euro)
     print(f"exact-BS MC 5k paths:         {float(f1(euro)):8.4f}  ({t1*1e6:8.1f} µs)")
 
-    # TPU-era variant: 500k QMC paths
+    # accelerator-sized variant: 500k QMC paths
     m1b = hh.MonteCarlo(
         hh.LognormalDynamics(), hh.BlackScholesExact(),
         hh.SimulationConfig(500_000, seed=0, qmc=True),

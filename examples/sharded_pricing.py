@@ -1,4 +1,4 @@
-"""Multi-device path-sharded Monte Carlo (the TPU-pod story).
+"""Multi-device path-sharded Monte Carlo (one program over several GPUs).
 
 Run on CPU with virtual devices to see the mechanics:
   XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu \

@@ -6,7 +6,7 @@ method)` everywhere — reference parity: src/Hedgehog.jl solve stack):
 
 1. Issue a phoenix-memory autocallable on a Heston underlier, priced on the
    conditional (Romano-Touzi) mixing grid — the V-path-only simulation that
-   backs the TPU flagship — and risk it with plain `jax.grad` (the bridge
+   backs the Monte Carlo flagship — and risk it with plain `jax.grad` (the bridge
    knock-in leg is smooth, so vega flows pathwise).
 2. Hedge the vol exposure with a VIX call on the SAME Heston market —
    `VIXAnalytic` prices the 30-day forward variance-swap root by

@@ -6,7 +6,7 @@ maturities as milliseconds since the proleptic-Gregorian epoch 0000-01-01T00:00
 (src/date_functions.jl:1-3, :54-58, :87-89).  We keep the identical epoch and
 constants so golden values and tick-based theta conventions carry over exactly.
 
-TPU note: tick magnitudes (~6.4e13 for modern dates) overflow float32, so ticks
+Precision note: tick magnitudes (~6.4e13 for modern dates) overflow float32, so ticks
 stay int64/float64 at the API boundary; kernels only ever see year fractions.
 ``yearfrac``/``add_yearfrac`` are jnp-traceable (AD-compatible — theta is
 defined as a derivative against expiry *in ticks*, reference
@@ -72,7 +72,7 @@ def to_ticks(x: DateLike):
 # ---- day-count conventions (beyond-reference: src/date_functions.jl is
 # ACT/365-fixed only) --------------------------------------------------------
 #
-# Two tiers, reflecting what a TPU program can trace:
+# Two tiers, reflecting what a jitted program can trace:
 # - LINEAR conventions (ACT/365F, ACT/360, ACT/365.25) are a constant scale
 #   on tick differences — fully jit/vmap/grad-compatible (theta-in-ticks is a
 #   well-defined constant slope, matching greeks_problem.jl:472-475).

@@ -77,7 +77,6 @@ def _conditional_basket_fast_path(problem, method):
         and isinstance(method.dynamics, HestonDynamics)
         and isinstance(method.strategy, HestonQE)
         and method.strategy.conditional
-        and not method.strategy.use_kernel
         and isinstance(market, HestonInputs)
     ):
         return None

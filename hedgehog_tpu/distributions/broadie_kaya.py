@@ -8,7 +8,7 @@ src/distributions/sample_from_cf.jl — the 3-step recipe:
      (heston.jl:150-212; sample_from_cf.jl)
   3. log S_T | V_T, ∫V  conditionally Gaussian (heston.jl:278-300)
 
-TPU-native redesign (SURVEY §7 step 9):
+Batched redesign (SURVEY §7 step 9):
 
 - χ'² via the Poisson-mixture representation: N~Poisson(λ/2),
   V_T = c·2·Gamma(d/2+N) — both samplers exist in jax.random, fully batched.
@@ -21,12 +21,10 @@ TPU-native redesign (SURVEY §7 step 9):
   large-p expansion with Stokes smoothing, accurate to ≲1e-6 for the orders
   ν = 2κθ/σ² − 1 ≲ 40 that market Heston parameters produce).
 
-TPU story: the CF machinery is complex128, which TPU does not lower.  When
-the default backend is not CPU, ``broadie_kaya_terminal_prices`` runs the
-whole sampler on the host via ``jax.pure_callback`` (documented, tested
-fallback — same prices, host speed).  The flagship TPU paths are the QE-M /
-Euler kernels; BK is the high-accuracy oracle, exactly the role it plays in
-the reference (heston.jl:246-300).
+The CF machinery is complex128 and runs on the device like every other
+sampler.  The flagship price path is the exact-transition mixing estimator;
+BK is the high-accuracy oracle, exactly the role it plays in the reference
+(heston.jl:246-300).
 """
 
 from __future__ import annotations
@@ -162,35 +160,6 @@ def _bk_terminal_from_params(
     return jnp.exp(mu + cond_std * zs)
 
 
-def _bk_via_host_callback(key, params, n, antithetic, cf_terms, iters):
-    """Run the BK sampler on the host CPU via pure_callback.
-
-    The CF machinery is complex128, which XLA:TPU cannot lower; on a TPU
-    backend the sampler executes host-side and ships only the (n_groups, n)
-    terminal prices back.  Gradients do not flow (BK is a sampler/oracle,
-    matching the reference's usage)."""
-    n_groups = 2 if antithetic else 1
-    raw = key if key.dtype == jnp.uint32 else jax.random.key_data(key)
-
-    def host(raw_key, *host_params):
-        cpu = jax.devices("cpu")[0]
-        with jax.default_device(cpu):
-            out = _bk_terminal_from_params(
-                jnp.asarray(raw_key),
-                *[jnp.asarray(p) for p in host_params],
-                n=n,
-                antithetic=antithetic,
-                cf_terms=cf_terms,
-                iters=iters,
-            )
-        import numpy as np
-
-        return np.asarray(out)
-
-    result_shape = jax.ShapeDtypeStruct((n_groups, n), jnp.float64)
-    return jax.pure_callback(host, result_shape, raw, *params)
-
-
 def broadie_kaya_terminal_prices(prob, config, strat, key=None):
     """Terminal Heston prices (n_groups, paths) by exact BK sampling.
 
@@ -220,11 +189,6 @@ def broadie_kaya_terminal_prices(prob, config, strat, key=None):
 
     if key is None:
         key = jax.random.PRNGKey(config.seed)
-
-    if jax.default_backend() != "cpu":
-        return _bk_via_host_callback(
-            key, params, n, antithetic, strat.cf_terms, strat.inversion_iters
-        )
     S0, V0, kappa, theta_lt, sigma, rho, r, T = params
     return _bk_terminal_from_params(
         key, S0, V0, kappa, theta_lt, sigma, rho, r, T,

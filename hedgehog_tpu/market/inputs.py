@@ -207,7 +207,7 @@ class BatesInputs(AbstractMarketInputs):
 @pytree
 class RoughBergomiInputs(AbstractMarketInputs):
     """Rough Bergomi market data (beyond-reference model family; Bayer-Friz-
-    Gatheral 2016 — see models/rough_bergomi.py for the TPU-first scheme):
+    Gatheral 2016 — see models/rough_bergomi.py for the exact-Volterra scheme):
 
         V_t = xi0·exp(η·Z_t − ½η²·t^{2H}),  Z = Riemann-Liouville fBM(H)
         dS/S = (r − q)dt + √V (ρ dW₁ + √(1−ρ²) dW⊥)
@@ -239,7 +239,7 @@ class RoughBergomiInputs(AbstractMarketInputs):
 @pytree
 class SLVInputs(AbstractMarketInputs):
     """Stochastic-local-vol market data (beyond-reference model family —
-    see models/slv.py for the TPU-first particle calibration):
+    see models/slv.py for the particle calibration):
 
         dS/S = (r − q)dt + L(t, S)·√V dW₁
         dV   = κ(θ − V)dt + mixing·σ·√V dW₂,   corr(dW₁, dW₂) = ρ

@@ -16,7 +16,7 @@ monotonicity whenever the slices themselves are ordered); outside the tenor
 range total variance scales proportionally with t (constant-IV-in-k
 extrapolation), which keeps w > 0 and calendar order.
 
-TPU design: slice evaluation is closed-form (vmaps/jits trivially; no
+Design: slice evaluation is closed-form (vmaps/jits trivially; no
 tables), the no-arb diagnostics are exact derivatives of w (hand-written,
 so they also hold under AD), and calibration is ONE vmapped bounded L-BFGS
 over all slices (math/optimize.py) rather than a per-slice Python loop —

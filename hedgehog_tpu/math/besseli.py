@@ -34,9 +34,8 @@ the order, seeded by the uniform expansion at ν+64 (where p is large again).
 
 Accuracy (pinned by tests/unit/test_besseli.py against scipy.special.iv):
 ≤3e-10 relative over ν ∈ [−0.9, 200], |z| ∈ [0.05, 500], all angles —
-including the turning wedge.  Everything is complex128: CPU-only by design
-(TPU callers go through the pure_callback fallback in
-distributions/broadie_kaya.py).
+including the turning wedge.  Everything is complex128, evaluated on the
+device like the rest of the Broadie-Kaya sampler.
 """
 
 from __future__ import annotations

@@ -1,10 +1,10 @@
 """Split-complex arithmetic: complex math as (re, im) real-array pairs.
 
-TPU XLA has no native complex128 (and its complex64 coverage of
-transcendentals is spotty), so Fourier pricing on-chip runs the
-characteristic-function math in explicit real pairs — plain f32/f64 VPU ops
-(mul/div/exp/log/atan2/sqrt), fully fusible and differentiable.  Off-chip the
-native complex128 path remains the default (methods/carr_madan.py).
+The characteristic-function math in explicit real pairs — plain f32/f64
+elementwise ops (mul/div/exp/log/atan2/sqrt), fully fusible and
+differentiable.  This is the ``engine="pair"`` alternative of
+methods/carr_madan.py; the native complex128 engine is the default on every
+backend.
 """
 
 from __future__ import annotations

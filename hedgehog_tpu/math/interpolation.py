@@ -1,6 +1,6 @@
 """1-D and nested 2-D interpolation with constant (clamped) extrapolation.
 
-TPU-native replacement for the reference's DataInterpolations.jl usage
+Jit-friendly replacement for the reference's DataInterpolations.jl usage
 (reference src/market_inputs/rate_curve.jl:76, vol_surface.jl:37-46):
 LinearInterpolation / CubicSpline with ExtrapolationType.Constant.
 
@@ -23,8 +23,8 @@ INTERP_KINDS = ("linear", "quadratic", "cubic")
 def _natural_cubic_second_derivs(xs, ys):
     """Second derivatives M_i of the natural cubic spline through (xs, ys).
 
-    Thomas tridiagonal solve (math/linalg.py) — TPU cannot lower an f64
-    LuDecomposition, so no jnp.linalg.solve here.
+    Thomas tridiagonal solve (math/linalg.py): plain arithmetic, no LU
+    custom call.
     """
     from .linalg import tridiag_solve
 

@@ -1,10 +1,9 @@
-"""Tiny TPU-safe linear solvers.
+"""Tiny structured linear solvers in plain arithmetic.
 
-XLA's general `jnp.linalg.solve` lowers to LuDecomposition, which TPU
-implements only for F32/C64 — under this package's global float64 it fails to
-compile on the target hardware.  The systems we actually solve are tiny and
-structured, so both get direct implementations in plain arithmetic (add/mul/
-div), which TPU handles in f64:
+The systems we actually solve are tiny and structured, so they get direct
+implementations in plain arithmetic (add/mul/div) instead of the general
+LU-based ``jnp.linalg.solve``: fully fusible, batched over leading axes and
+f64 everywhere:
 
 - ``cholesky_solve_small``: unrolled Cholesky for static-size SPD systems
   (LSM normal equations, (degree+1)² ≤ 8²);
@@ -12,9 +11,9 @@ div), which TPU handles in f64:
   coefficients);
 - ``tridiag_solve_pcr``: parallel cyclic reduction — ⌈log₂n⌉ fully
   vectorized elimination stages instead of a length-n sequential sweep,
-  the TPU-shaped solver for the PDE engine's per-time-step systems
-  (a Thomas scan of n≈500 scalar steps is latency-bound on TPU; PCR is
-  ~9 wide VPU stages) and batched over leading axes.
+  the wide solver for the PDE engine's per-time-step systems (a Thomas
+  scan of n≈500 scalar steps is latency-bound; PCR is ~9 wide stages) and
+  batched over leading axes.
 
 All are differentiable (pure jnp ops, no custom primitives).
 """
@@ -105,7 +104,7 @@ def tridiag_solve_pcr(dl, d, du, b):
     identity rows (d=1, dl=du=b=0), making every stage shape-static and
     branch-free.  Stable for the diagonally-dominant / M-matrix systems the
     PDE stepper produces (Péclet-upwinded theta-scheme); ~n·log n flops on
-    ⌈log₂n⌉ wide VPU stages vs the Thomas scan's n sequential steps.
+    ⌈log₂n⌉ wide stages vs the Thomas scan's n sequential steps.
     """
     dl, d, du, b = jnp.broadcast_arrays(
         jnp.asarray(dl), jnp.asarray(d), jnp.asarray(du), jnp.asarray(b)

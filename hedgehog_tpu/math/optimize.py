@@ -1,6 +1,6 @@
 """Box-bounded L-BFGS for calibration.
 
-TPU-native replacement for the reference's Optimization.jl + OptimizationOptimJL
+Jit-friendly replacement for the reference's Optimization.jl + OptimizationOptimJL
 LBFGS with AutoForwardDiff and mandatory box bounds for Heston
 (calibration.jl:74-98, examples/heston_calib.jl:109-117).
 
@@ -63,11 +63,10 @@ def argmin_ift(fun: Callable, x_star, args):
         x_star, args = res
         H = jax.hessian(fun, argnums=0)(x_star, args)
         n = x_star.size
-        # Plain-arithmetic solve (math/linalg.py): jnp.linalg.solve lowers to
-        # an LU custom call that TPU only implements for f32/c64, so under
-        # this package's f64 default it fails to compile on the target
-        # hardware (and under vmapped cotangents, e.g. jax.jacobian of a
-        # calibrated optimum).  The Hessian at an interior optimum is SPD;
+        # Plain-arithmetic solve (math/linalg.py) instead of the LU custom
+        # call of jnp.linalg.solve, so it also batches under vmapped
+        # cotangents (e.g. jax.jacobian of a calibrated optimum).  The
+        # Hessian at an interior optimum is SPD;
         # symmetrize + ridge guard the nearly-converged case.
         from .linalg import cholesky_solve_small
 

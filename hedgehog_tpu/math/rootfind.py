@@ -1,6 +1,6 @@
 """Batched, differentiable bracketed root-finding.
 
-TPU-native replacement for the reference's NonlinearSolve/Roots usage
+Jit-friendly replacement for the reference's NonlinearSolve/Roots usage
 (calibration.jl:143-144 Brent on a fixed bracket; sample_from_cf.jl:105-135
 Newton→bisection fallback chain).  Design per SURVEY §7:
 

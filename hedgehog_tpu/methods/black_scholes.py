@@ -2,7 +2,7 @@
 
 Parity target: reference src/pricing_methods/black_scholes.jl.  The pricer is
 fully vectorized: strike/expiry/spot/vol may be arrays, so one call prices a
-whole strike×expiry grid on the VPU (the reference's scalar closed form is the
+whole strike×expiry grid in one vectorized op (the reference's scalar closed form is the
 degenerate case).  Zero volatility falls back to discounted intrinsic via a
 branchless select (black_scholes.jl:53-54).
 """

@@ -9,7 +9,7 @@ integrand (carr_madan.jl:61-62, :88-92) is
 with the call price the real part of ∫_{-bound}^{bound} and puts recovered by
 parity (:67-68).
 
-TPU-native quadrature: the reference's adaptive quadgk is not XLA-expressible
+Fixed-node quadrature: the reference's adaptive quadgk is not XLA-expressible
 (data-dependent subdivision), so we use a fixed-node two-scale panel rule.
 The integrand has TWO length scales: an α-driven central peak of width ~1
 (the rational denominator) and a CF-decay envelope of width ~1/(σ√T), which
@@ -74,9 +74,8 @@ def carr_madan_fft_smile(
     λ = 2π/(nη) ≈ 0.77% strike spacing (an FFT this size is milliseconds —
     far cheaper than per-strike quadrature for dense grids).
 
-    complex128 throughout → run on the CPU backend (like the Broadie-Kaya
-    oracle); the per-strike panel engine remains the TPU path.  The strike
-    of ``prob.payoff`` is ignored — the market/expiry define the smile.
+    complex128 throughout.  The strike of ``prob.payoff`` is ignored — the
+    market/expiry define the smile.
     """
     payoff = prob.payoff
     require_european(payoff, "carr_madan_fft_smile", spot_only=True)
@@ -114,9 +113,9 @@ class CarrMadan(AbstractPricingMethod):
     right choice for short-dated/low-vol options where any fixed bound
     truncates real mass.
 
-    ``engine``: "complex" evaluates the CF in native complex128 (CPU/GPU);
-    "pair" evaluates in split real/imag arithmetic, which is what runs
-    natively on TPU (no c128 there); "auto" picks by backend.
+    ``engine``: "complex" evaluates the CF in native complex128; "pair"
+    evaluates in split real/imag arithmetic (math/complexops.py); "auto"
+    resolves to "complex" on every backend.
 
     ``quadrature``: "panel" (default) = two-scale rule (GL peak panel +
     log-substituted GL tails, accuracy independent of ``bound``);
@@ -321,11 +320,7 @@ def _solve_carr_madan(prob: PricingProblem, method: CarrMadan) -> CarrMadanSolut
     alpha = method.alpha
     D = df(market.rate, payoff.expiry)
 
-    engine = method.engine
-    if engine == "auto":
-        import jax
-
-        engine = "pair" if jax.default_backend() == "tpu" else "complex"
+    engine = "complex" if method.engine == "auto" else method.engine
 
     from ..core.payoffs import (
         AsianOption,
@@ -355,7 +350,7 @@ def _solve_carr_madan(prob: PricingProblem, method: CarrMadan) -> CarrMadanSolut
     logK_b = jnp.asarray(logK)[..., None]  # (..., 1) vs v: (nodes,)
 
     if engine == "pair":
-        # split-complex evaluation (TPU-native; math/complexops.py)
+        # split-complex evaluation (math/complexops.py)
         from ..math.complexops import cdiv, cmul
         from ..models.dynamics import terminal_log_cf_pair
 

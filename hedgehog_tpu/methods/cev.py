@@ -18,7 +18,7 @@ digitals; the put follows from the same two CDFs (absorption included —
 discounted CEV is a true martingale for β < 1, so put-call parity holds and
 is asserted in tests against the independent CDF evaluations).
 
-TPU design: F is the Poisson-mixture series Σ_j pois(j; λ/2)·P(k/2+j, x/2)
+Design: F is the Poisson-mixture series Σ_j pois(j; λ/2)·P(k/2+j, x/2)
 evaluated as ONE fixed-trip window of ``terms`` terms centered on the
 Poisson mode (static shape; the mode center keeps the window inside the
 ±10√(λ/2) mass for λ/2 up to ~(terms/20)²), with log-space Poisson weights

@@ -7,7 +7,7 @@ discount ``exp(-z(T)·ΔT)`` (crr.jl:113-130).  European + American exercise;
 Spot or Forward underlying semantics (Spot discounts the forward node values
 back with the curve, crr.jl:77-97).
 
-TPU design: the shrinking tree is a fixed-width ``(steps+1,)`` vector.  Each
+Design: the shrinking tree is a fixed-width ``(steps+1,)`` vector.  Each
 backward contraction reads ``v[j]`` and ``v[j+1]``; after ``k`` steps slot
 ``j`` depends only on initial slots ``j..j+k``, all of which are valid payoff
 nodes, so no masking is needed and slot 0 holds the root price after ``steps``

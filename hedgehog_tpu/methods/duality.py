@@ -1,6 +1,6 @@
 """Andersen-Broadie primal-dual bounds for LSM American/Bermudan prices.
 
-Beyond-reference capability (the reference's LSM — /root/reference/src/
+Beyond-reference capability (the reference's LSM — src/
 pricing_methods/least_squares_montecarlo.jl:99-136 — reports only the primal
 estimate and validates it against CRR; here the framework bounds its own
 bias).  The LSM price is a LOWER bound in expectation when evaluated on
@@ -16,7 +16,7 @@ hold in expectation at ANY regression quality; a tight [lower, upper]
 interval certifies the policy, a wide one flags basis misspecification —
 the estimator audits itself without an external oracle.
 
-TPU shape: the classic formulation nests simulations per (outer path,
+Shape: the classic formulation nests simulations per (outer path,
 exercise date) — a triply-nested loop on CPUs.  Here ALL inner bundles run
 in ONE lax.scan over calendar time on a (dates × outer × inner) lane tensor
 (lanes activate when the clock passes their start date), so the whole dual

@@ -67,13 +67,13 @@ class HullWhiteMonteCarlo(AbstractPricingMethod):
 @pytree
 class HullWhiteGrid(AbstractPricingMethod):
     """Dense x-grid backward induction for (Bermudan) swaptions — the
-    TPU-native replacement for the classic Hull-White trinomial tree.
+    matmul replacement for the classic Hull-White trinomial tree.
 
     The OU transition density over ANY gap is Gaussian in closed form, and
     the bank-account weight E[e^{−∫x}|x, x'] is a closed-form exponential
     of (x, x'), so the discounted transition operator between consecutive
     exercise dates is one dense (nodes × nodes) kernel matrix: a Bermudan
-    with m exercise dates prices in m matmuls on the MXU — no per-Δt
+    with m exercise dates prices in m matmuls — no per-Δt
     stepping, no tree geometry, exact transitions at any date spacing.
     ``nodes`` trapezoid points over ``width`` stationary standard
     deviations; European swaptions cross-check Jamshidian at ~1e-5."""

@@ -13,7 +13,7 @@ Semantics preserved exactly:
   exercise where immediate payoff exceeds fitted continuation (:156-165);
 - price = mean(disc^τ·value) (:132-133).
 
-TPU-native regression: the reference's ``Polynomials.fit`` on dynamically-
+Fixed-shape regression: the reference's ``Polynomials.fit`` on dynamically-
 sized ITM subsets becomes a masked weighted least-squares via the
 (degree+1)² normal equations — fixed shapes, one small `solve` per scan step.
 When the path axis is sharded (``psum_axis``), the normal equations are the
@@ -81,8 +81,7 @@ def _masked_lstsq_beta(phi, y, w, psum_axis: Optional[str]):
         A = jax.lax.psum(A, psum_axis)
         b = jax.lax.psum(b, psum_axis)
     ridge = 1e-10 * jnp.eye(n_terms) * (1.0 + jnp.trace(A) / n_terms)
-    # unrolled Cholesky (math/linalg.py): jnp.linalg.solve lowers to an f64
-    # LuDecomposition that TPU cannot compile
+    # unrolled Cholesky (math/linalg.py) instead of an LU custom call
     return cholesky_solve_small(A + ridge, b)
 
 
@@ -272,8 +271,8 @@ def lsm_backward_induction(
             # basis CENTERED AND SCALED at the barrier (powers of u, u = 0
             # at H): the kernel-weighted normal equations stay
             # well-conditioned — raw s/K monomials on the narrow kernel
-            # band are near-singular and NaN the Cholesky under the TPU's
-            # emulated f64 — and the barrier evaluation is just β[0]
+            # band are near-singular and can NaN the Cholesky — and the
+            # barrier evaluation is just β[0]
             if vols is None:
                 phi_b = _poly_basis(u, degree)
                 beta_h = _masked_lstsq_beta(phi_b, continuation, w_h, psum_axis)

@@ -18,12 +18,6 @@ This makes the full 7-parameter greek vector a single forward pass at a
 small multiple of the price cost — the "<2× price" contract of BASELINE.md
 north star #2 (reference: ForwardDiff Duals through a re-solve,
 greeks_problem.jl:249-262), on the serving estimator.
-
-The tangent tables (:func:`greek_tables`) and the coefficient step
-(models/heston_qe.qe_v_step_with_coeffs) are the f64 twins of the TPU greek
-kernels' SMEM tables and fp32 coefficient math — the kernel builder
-(ops/heston_qe_greeks_kernel._greek_table) derives from :func:`greek_tables`
-so the two cannot drift.
 """
 
 from __future__ import annotations
@@ -91,9 +85,6 @@ def greek_tables(kappa, theta, sigma, T, steps: int):
     - ``djc`` (5, 3): the (α, β, γ) closing the telescoped J chain
       J = (V_T − V0 − κθT + κ·IV)/σ at the end of the path:
       dJ_d = (1/σ)·dV_T + (κ/σ)·dIV + α_d·IV + β_d + γ_d·J.
-
-    Same structure as the TPU greek kernels' SMEM table
-    (ops/heston_qe_greeks_kernel._greek_table) in f64.
     """
     pvec = jnp.stack([jnp.zeros_like(jnp.asarray(kappa)), jnp.asarray(kappa),
                       jnp.asarray(theta), jnp.asarray(sigma), jnp.asarray(T)])
@@ -126,8 +117,7 @@ def _scan_with_tangents(v0_val, zs, us, c, dc):
     (models/heston_qe.qe_v_step_with_coeffs): the per-step derivative
     collapses onto two coefficient arrays shared by ALL directions, so the
     tangent cost is a few broadcast FMAs per direction — no per-direction
-    re-walk of the sqrt/log/div chain (which under f64 emulation on TPU
-    costs ~25× the primal when generated by generic linearization).
+    re-walk of the sqrt/log/div chain.
 
     ``zs``/``us``: (steps, ...) draw arrays.  Returns
     (v_T, iv, j, dv (5, ...), div (5, ...)).
@@ -205,16 +195,6 @@ def heston_mixing_price_and_greeks(prob, method, key=None):
             "heston_mixing_price_and_greeks requires MonteCarlo(HestonDynamics, "
             "HestonQE(conditional=True))"
         )
-    if method.strategy.use_kernel:
-        # the seeded-price-equality contract below holds for the pure-JAX
-        # streams only; kernel-speed greeks live in
-        # ops.heston_qe_greeks_kernel.heston_qe_mixing_price_and_greeks
-        raise TypeError(
-            "heston_mixing_price_and_greeks draws the pure-JAX streams; for "
-            "use_kernel=True methods use "
-            "ops.heston_qe_greeks_kernel.heston_qe_mixing_price_and_greeks "
-            "(or jax.grad through solve, which routes through the kernel VJP)"
-        )
     require_european(prob.payoff, "heston_mixing_price_and_greeks", spot_only=True)
     if jnp.ndim(prob.payoff.strike) > 0:
         raise TypeError("scalar strike only (vmap externally for grids)")
@@ -251,8 +231,7 @@ def heston_mixing_price_and_greeks(prob, method, key=None):
         ktd_over_sigma=market.kappa * market.theta * dt / market.sigma,
     )
     # 4 directions only: the T row (theta greek) is not in GREEK_ORDER —
-    # carrying it would waste ~20% of the tangent FMAs (the kernel twin also
-    # runs n_dirs=4)
+    # carrying it would waste ~20% of the tangent FMAs
     dc, djc = greek_tables(market.kappa, market.theta, market.sigma, T, steps)
     dc, djc = dc[:4], djc[:4]
     zs = jnp.moveaxis(z, 1, 0)  # (steps, g, paths)
@@ -343,12 +322,6 @@ def heston_exact_price_and_greeks(prob, method, key=None):
         raise TypeError(
             "heston_exact_price_and_greeks requires MonteCarlo(HestonDynamics, "
             "HestonExactMixing())"
-        )
-    if method.strategy.use_kernel:
-        raise TypeError(
-            "heston_exact_price_and_greeks draws the pure-JAX streams; the "
-            "exact kernel is primal-only (serve kernel greeks from the QE "
-            "mixing greek kernel)"
         )
     require_european(prob.payoff, "heston_exact_price_and_greeks", spot_only=True)
     if jnp.ndim(prob.payoff.strike) > 0:

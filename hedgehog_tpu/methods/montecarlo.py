@@ -1,13 +1,13 @@
-"""Monte Carlo pricing engine: dynamics × strategy × config, TPU-first.
+"""Monte Carlo pricing engine: dynamics × strategy × config.
 
 Parity target: reference src/pricing_methods/montecarlo.jl (dynamics/strategy/
 variance-reduction taxonomy, SimulationConfig, exact vs Euler-Maruyama paths,
 antithetic variates, payoff reduction, discounted mean price).
 
-TPU-native design (replaces StochasticDiffEq/DiffEqNoiseProcess, SURVEY §2b):
+Accelerator design (replaces StochasticDiffEq/DiffEqNoiseProcess, SURVEY §2b):
 
 - **Megabatch simulation**: one ``lax.scan`` over time steps carrying a
-  ``(paths,)`` state vector — all paths advance in lockstep on the VPU.  No
+  ``(paths,)`` state vector — all paths advance in lockstep.  No
   per-trajectory solver objects; the path axis is the vectorized axis and (in
   ``hedgehog_tpu.parallel``) the sharded axis.
 - **Counter-based RNG**: a single static integer seed derives a Threefry key;
@@ -23,9 +23,6 @@ TPU-native design (replaces StochasticDiffEq/DiffEqNoiseProcess, SURVEY §2b):
 - **Differentiable**: with the RNG held fixed, ``jax.grad`` through
   simulate→payoff→discount gives pathwise Greeks (the ForwardDiff-through-
   seeded-MC trick of greeks_agreement.jl:170-241).
-
-The optional Pallas fused kernel (hedgehog_tpu.ops) plugs in behind the same
-EulerMaruyama strategy via ``use_kernel=True``.
 """
 
 from __future__ import annotations
@@ -112,10 +109,7 @@ class SimulationStrategy:
 
 @pytree
 class EulerMaruyama(SimulationStrategy):
-    """Euler-Maruyama log-space stepping; optionally via the fused Pallas
-    TPU kernel (``use_kernel=True``, see hedgehog_tpu.ops)."""
-
-    use_kernel: bool = static_field(default=False)
+    """Euler-Maruyama log-space stepping."""
 
 
 @pytree
@@ -135,7 +129,6 @@ class HestonQE(SimulationStrategy):
     estimator: it prices through ``solve`` / ``mc_path_values`` only."""
 
     martingale_correction: bool = static_field(default=True)
-    use_kernel: bool = static_field(default=False)
     conditional: bool = static_field(default=False)
 
 
@@ -145,10 +138,7 @@ class ExactSimulation(SimulationStrategy):
 
 @pytree
 class BlackScholesExact(ExactSimulation):
-    """Exact terminal lognormal draw (no path discretization error);
-    ``use_kernel=True`` routes through the fused Pallas sampler on TPU."""
-
-    use_kernel: bool = static_field(default=False)
+    """Exact terminal lognormal draw (no path discretization error)."""
 
 
 @pytree
@@ -220,10 +210,7 @@ class HestonExactMixing(ExactSimulation):
     it prices through ``solve`` / ``mc_path_values`` only.  The per-path
     values carry the frozen-count Poisson likelihood-ratio surrogate, so
     ``jax.grad`` through ``solve`` is unbiased despite the discrete count
-    (see models/heston_exact.py); the fused kernel (``use_kernel=True``) is
-    primal-only — kernel-speed greeks serve from the QE mixing kernels."""
-
-    use_kernel: bool = static_field(default=False)
+    (see models/heston_exact.py)."""
 
 
 @pytree
@@ -232,12 +219,11 @@ class RoughBergomiMixing(ExactSimulation):
     model family; pair with RoughBergomiDynamics/RoughBergomiInputs; scheme
     in models/rough_bergomi.py): the joint Gaussian (ΔW₁, Z) vector is
     drawn EXACTLY from its analytic covariance — one Cholesky at trace
-    time, one MXU matmul per batch — then each variance path closes with
+    time, one matmul per batch — then each variance path closes with
     the conditional Black-Scholes formula (Romano-Touzi: logS_T | W₁-path
     is exactly normal).  The only discretization is the left-point Riemann
     sum for (∫V, ∫√V dW₁), which keeps the effective forward exactly
-    unbiased; ``config.steps`` is the grid size n (Cholesky is (2n)² —
-    n ≲ 512 is effectively free on the MXU).
+    unbiased; ``config.steps`` is the grid size n (Cholesky is (2n)²).
 
     Like the Heston mixing strategies it never materializes terminal
     samples; smooth per-path values → pathwise AD greeks including
@@ -245,27 +231,15 @@ class RoughBergomiMixing(ExactSimulation):
     index).  ``quad_nodes`` sizes the Gauss-Legendre panel behind the
     Z-covariance (64 ≈ 1e-11 accurate for H ∈ [0.03, 0.5]).
 
-    ``fp32=True`` is the TPU serving path: the BULK work (Gaussian draws,
-    the Volterra matmul, the variance/(∫V, ∫√V dW) accumulation) runs in
-    float32 — native TPU speed instead of emulated f64 — while the
-    covariance + Cholesky (tiny, conditioning-sensitive) and the final
-    conditional-BS close stay f64.  Prices agree with the f64 path to
-    ~1e-4 relative (tests/unit/test_rough_bergomi.py).
-
-    ``use_kernel=True`` routes VANILLA pricing through the fused Pallas
-    kernel (ops/rbergomi_kernel.py): on-chip draws, the Volterra matmul on
-    the MXU and the conditional-BS close in one VMEM-resident pass.  The
-    kernel path is DIFFERENTIABLE: a custom VJP replays the same stream
-    through one cotangent-weighted kernel, so ``jax.grad`` through the
-    kernel-backed ``solve`` works — for all scalar market parameters
-    (incl. ∂price/∂H and the maturity/theta chain) and, under a
-    ForwardVarianceCurve, for the BUCKETED vegas ∂price/∂ξᵢ (per-step
-    ∂/∂lnC_k rows chained through the spine interp at trace level).
-    Falls back to the pure-JAX path off-TPU."""
+    ``fp32=True`` runs the BULK work (Gaussian draws, the Volterra
+    matmul, the variance/(∫V, ∫√V dW) accumulation) in float32, with the
+    matmuls at ``precision=HIGHEST`` (no TF32), while the covariance +
+    Cholesky (tiny, conditioning-sensitive) and the final conditional-BS
+    close stay f64.  Prices agree with the f64 path to ~1e-4 relative
+    (tests/unit/test_rough_bergomi.py)."""
 
     quad_nodes: int = static_field(default=64)
     fp32: bool = static_field(default=False)
-    use_kernel: bool = static_field(default=False)
 
 
 @pytree
@@ -802,7 +776,7 @@ def _rbergomi_draws(prob, config, key, point_offset, n_extra: int, quad_nodes: i
     ``n_extra`` iid standard-normal rows (the orthogonal spot leg for grid
     schemes): returns (dw, z, extra) each (g, n, paths) with g = 2 under
     antithetic pairing.  One (2n × 2n) Cholesky at trace time + one matmul
-    per call — the TPU-first alternative to the hybrid-FFT scheme (see
+    per call — the matmul alternative to the hybrid-FFT scheme (see
     models/rough_bergomi.py)."""
     from ..models.rough_bergomi import volterra_chol
 
@@ -824,7 +798,9 @@ def _rbergomi_draws(prob, config, key, point_offset, n_extra: int, quad_nodes: i
     else:
         xi = jax.random.normal(base, (dims, paths), dtype=dtype)
     xi = jnp.stack([xi, -xi]) if anti else xi[None]  # (g, dims, P)
-    x = jnp.einsum("ij,gjp->gip", chol, xi[:, : 2 * n])
+    # HIGHEST: an f32 matmul would otherwise run in TF32 on the GPU
+    x = jnp.einsum("ij,gjp->gip", chol, xi[:, : 2 * n],
+                   precision=jax.lax.Precision.HIGHEST)
     extra = xi[:, 2 * n :] if n_extra else None
     return x[:, :n], x[:, n:], extra
 
@@ -1354,9 +1330,7 @@ def _heston_qe_mixing_values(prob, config, key, point_offset=0):
     anti = isinstance(config.variance_reduction, Antithetic)
     base = _base_key(config, key)
     if config.qmc:
-        # unsplit base key → the in-kernel Sobol' stream (ops/heston_qe_kernel
-        # _sobol_table(seed)) shares the identical digital shift, so the TPU
-        # kernel and this pure-JAX path draw the SAME randomized points
+        # unsplit base key: one randomized Sobol' sequence per seed
         zb, ub = _qmc_normals_and_uniforms(base, steps, 1, config.trajectories, skip=point_offset)
         zb = zb[:, 0, :]
         z = jnp.stack([zb, -zb]) if anti else zb[None]
@@ -1641,11 +1615,11 @@ def _supports_bridge_grid(method: MonteCarlo) -> bool:
     combo — the resolution rule behind ``ki_monitoring='auto'``."""
     dyn, strat = method.dynamics, method.strategy
     if isinstance(dyn, LognormalDynamics) and isinstance(strat, EulerMaruyama):
-        return not strat.use_kernel
+        return True
     if isinstance(dyn, HestonDynamics) and isinstance(strat, HestonQE):
-        return strat.conditional and not strat.use_kernel
+        return strat.conditional
     if isinstance(dyn, HestonDynamics) and isinstance(strat, HestonExactMixing):
-        return not strat.use_kernel
+        return True
     if isinstance(dyn, RoughBergomiDynamics) and isinstance(strat, EulerMaruyama):
         return True
     return False
@@ -1669,11 +1643,6 @@ def _bridge_log_grid(prob: PricingProblem, method: MonteCarlo, what: str):
     _, T, _ = _sim_params(prob)
 
     if isinstance(dyn, LognormalDynamics) and isinstance(strat, EulerMaruyama):
-        if strat.use_kernel:
-            raise TypeError(
-                "the fused GBM kernels return terminal samples without the "
-                f"bridge factors; drop use_kernel=True for {what} payoffs"
-            )
         sigma = (
             market.sigma.sigma
             if isinstance(market.sigma, FlatVolSurface)
@@ -1688,22 +1657,12 @@ def _bridge_log_grid(prob: PricingProblem, method: MonteCarlo, what: str):
         and isinstance(strat, HestonQE)
         and strat.conditional
     ):
-        if strat.use_kernel:
-            raise TypeError(
-                f"{what} pricing on the conditional grid is a pure-JAX "
-                "feature; drop use_kernel=True"
-            )
         s_grid, v_grid = simulate_conditional_grid(prob, config)
         dt = T / config.steps
         iv = 0.5 * dt * (v_grid[:, :-1] + v_grid[:, 1:])  # (g, steps, paths)
         spot_grid = jnp.moveaxis(s_grid, 1, 0)
         return spot_grid, jnp.moveaxis(iv, 1, 0), v_grid
     if isinstance(dyn, HestonDynamics) and isinstance(strat, HestonExactMixing):
-        if strat.use_kernel:
-            raise TypeError(
-                f"{what} pricing on the exact-transition grid is a pure-JAX "
-                "feature; drop use_kernel=True"
-            )
         # EXACT transitions + SAMPLED per-segment ∫V: the bridge clock is the
         # distributionally correct integrated variance, eliminating the
         # trapezoid's within-segment V-stochasticity bias (r3 verdict item 3)
@@ -1769,8 +1728,6 @@ def barrier_grid_factors(prob: PricingProblem, method: MonteCarlo):
             jnp.log(spot_grid), seg_vars, jnp.log(payoff.barrier), up
         )
     elif isinstance(dyn, NormalDynamics) and isinstance(strat, EulerMaruyama):
-        if strat.use_kernel:
-            raise TypeError("Bachelier has no fused kernel; drop use_kernel=True")
         grid = simulate_price_grid(prob, method)  # SPOT grid (g, steps+1, paths)
         spot_grid = jnp.moveaxis(grid, 1, 0)
         # F-space: F = S/c(t) is the Brownian coordinate
@@ -1906,11 +1863,6 @@ def _solve_barrier_mc(prob: PricingProblem, method: MonteCarlo):
         _require_no_dividend_schedule(
             market, "the one-bridge BlackScholesExact path estimator"
         )
-        if getattr(strat, "use_kernel", False):
-            raise TypeError(
-                "the fused GBM kernels return terminal samples without the "
-                "bridge factors; drop use_kernel=True for barrier payoffs"
-            )
         sigma = (
             market.sigma.sigma
             if isinstance(market.sigma, FlatVolSurface)
@@ -1984,11 +1936,6 @@ def _solve_double_barrier_mc(prob: PricingProblem, method: MonteCarlo):
         _require_no_dividend_schedule(
             market, "the one-bridge BlackScholesExact path estimator"
         )
-        if getattr(strat, "use_kernel", False):
-            raise TypeError(
-                "the fused GBM kernels return terminal samples without the "
-                "bridge factors; drop use_kernel=True for barrier payoffs"
-            )
         sigma = (
             market.sigma.sigma
             if isinstance(market.sigma, FlatVolSurface)
@@ -2054,11 +2001,6 @@ def _solve_lookback_mc(prob: PricingProblem, method: MonteCarlo):
         _require_no_dividend_schedule(
             market, "the one-bridge BlackScholesExact path estimator"
         )
-        if getattr(strat, "use_kernel", False):
-            raise TypeError(
-                "the fused GBM kernels return terminal samples without the "
-                "bridge state; drop use_kernel=True for lookback payoffs"
-            )
         sigma = (
             market.sigma.sigma
             if isinstance(market.sigma, FlatVolSurface)
@@ -2423,8 +2365,7 @@ def _heston_exact_mixing_values(prob, config, key, point_offset=0, with_score=Fa
     from the exact-transition segmented mixing scheme (HestonExactMixing;
     numerics in models/heston_exact.py).
 
-    Draw layout per segment (the contract the TPU kernel's Sobol'/PRNG
-    stream mirrors): (u_poisson, z_gamma, u_boost, z_iv) — QMC dims
+    Draw layout per segment: (u_poisson, z_gamma, u_boost, z_iv) — QMC dims
     step-major 4·i … 4·i+3, the two z's from ndtri.  Antithetic mirror:
     negated normals, 1−u uniforms.
 
@@ -2478,12 +2419,11 @@ def _heston_exact_mixing_values(prob, config, key, point_offset=0, with_score=Fa
     iv = jnp.zeros_like(v)
     logl = jnp.zeros_like(v)
 
-    # NOTE on rematerialization: wrapping this segment body in
-    # jax.checkpoint was measured SLOWER on TPU (grad 288 ms vs 204 ms at
-    # 2^19 pairs × 2 segments) — the special-function chain (fixed-trip
-    # Poisson inversion, Bessel-ratio continued fraction, saddlepoint gamma
-    # quantile) is compute-heavy enough that recomputing it in the backward
-    # pass costs more than spilling its residuals.  Keep plain reverse AD.
+    # Plain reverse AD (no jax.checkpoint on the segment body): the
+    # special-function chain (fixed-trip Poisson inversion, Bessel-ratio
+    # continued fraction, saddlepoint gamma quantile) is compute-heavy, so
+    # recomputing it in the backward pass is expected to cost more than
+    # keeping its residuals.  Not measured on the H100.
     for i in range(segments):  # static unroll: segments is 1-4 in practice
         y, ll = cir_exact_step_score(v, u_pois[i], z_gam[i], u_boost[i], c, kmax)
         logl = logl + ll  # dead code under with_score=False (XLA DCE)
@@ -2708,7 +2648,8 @@ def rbergomi_surface_mc(
     else:
         xi = jax.random.normal(base, (2 * n, paths), dtype=dtype)
     xi = jnp.stack([xi, -xi]) if anti else xi[None]
-    x = jnp.einsum("ij,gjp->gip", chol, xi)
+    # HIGHEST: an f32 matmul would otherwise run in TF32 on the GPU
+    x = jnp.einsum("ij,gjp->gip", chol, xi, precision=jax.lax.Precision.HIGHEST)
     dw, z = x[:, :n], x[:, n:]
 
     t_left = jnp.concatenate([jnp.zeros((1,), t.dtype), t[:-1]])
@@ -2733,9 +2674,9 @@ def rbergomi_surface_mc(
 
 
 def surface_seg_steps(T_host, steps: int, min_first: int = 1):
-    """Static per-segment step allocation shared by the pure-JAX surface and
-    the TPU surface kernel (biases match because this is the ONE place the
-    rounding rule lives): proportional to segment length, min 1/segment.
+    """Static per-segment step allocation of the surface estimators (the
+    ONE place the rounding rule lives): proportional to segment length,
+    min 1/segment.
 
     ``min_first`` floors the FIRST gap's count: the exact-mixing scheme's
     2-moment ∫V gamma family needs ≥2 cumulative segments at every expiry
@@ -2751,8 +2692,7 @@ def surface_seg_steps(T_host, steps: int, min_first: int = 1):
 
 def validate_surface_expiries(market, expiries):
     """Host-static expiry year-fractions with the surface contract checks
-    (concrete reference date, strictly increasing, after the reference);
-    shared by the pure-JAX surface and the TPU adapter."""
+    (concrete reference date, strictly increasing, after the reference)."""
     if len(expiries) == 0:
         raise ValueError("need at least one expiry")
     try:
@@ -3117,11 +3057,10 @@ def simulate_exact_conditional_grid(prob, config, key=None, point_offset=0):
 
 
 def simulate_conditional_values(
-    prob: PricingProblem, method: MonteCarlo, key=None, device_id=0, point_offset=0
+    prob: PricingProblem, method: MonteCarlo, key=None, point_offset=0
 ) -> jnp.ndarray:
     """Per-path undiscounted conditional vanilla values, (n_groups, paths) —
-    dispatcher for HestonQE(conditional=True) (kernel on TPU, pure JAX
-    elsewhere).  Same key/device/point-offset contract as
+    dispatcher for the conditional (mixing) strategies.  Same key/device/point-offset contract as
     :func:`simulate_terminal_prices`."""
     dyn, strat, config = method.dynamics, method.strategy, method.config
     if isinstance(dyn, BatesDynamics):
@@ -3129,11 +3068,6 @@ def simulate_conditional_values(
             raise TypeError(
                 "Bates conditional MC runs on HestonQE(conditional=True); "
                 f"got {type(strat).__name__}"
-            )
-        if strat.use_kernel:
-            raise TypeError(
-                "the fused mixing kernels are Heston-only; Bates conditional "
-                "MC is a pure-JAX estimator (drop use_kernel=True)"
             )
         require_european(prob.payoff, "conditional MonteCarlo", spot_only=True)
         return _bates_qe_mixing_values(prob, config, key, point_offset=point_offset)
@@ -3143,11 +3077,6 @@ def simulate_conditional_values(
                 "Heston-Hull-White prices through the three-factor "
                 "conditional mixing estimator: pair HestonHullWhiteDynamics "
                 f"with HestonQE(conditional=True); got {type(strat).__name__}"
-            )
-        if strat.use_kernel:
-            raise TypeError(
-                "the fused mixing kernels are single-factor Heston; the "
-                "hybrid estimator is pure JAX (drop use_kernel=True)"
             )
         require_european(prob.payoff, "conditional MonteCarlo", spot_only=True)
         return _hhw_mixing_values(prob, config, key, point_offset=point_offset)
@@ -3162,23 +3091,6 @@ def simulate_conditional_values(
                 f"{type(strat).__name__})"
             )
         require_european(prob.payoff, "conditional MonteCarlo", spot_only=True)
-        if strat.use_kernel:
-            from ..core.payoffs import VanillaOption
-
-            if not isinstance(prob.payoff, VanillaOption) or (
-                jnp.ndim(prob.payoff.strike) > 0
-            ):
-                raise TypeError(
-                    "the fused rough-Bergomi kernel closes scalar-strike "
-                    "vanillas only; other payoffs/strike grids price through "
-                    "the pure-JAX estimator (drop use_kernel=True)"
-                )
-            from ..ops.rbergomi_kernel import rbergomi_mixing_values_pallas
-
-            return rbergomi_mixing_values_pallas(
-                prob, config, strat, key=key, device_id=device_id,
-                point_offset=point_offset,
-            )
         return _rbergomi_mixing_values(
             prob, config, key, point_offset=point_offset,
             quad_nodes=strat.quad_nodes, fp32=strat.fp32,
@@ -3192,39 +3104,13 @@ def simulate_conditional_values(
             f"HestonExactMixing; got ({type(dyn).__name__}, {type(strat).__name__})"
         )
     require_european(prob.payoff, "conditional MonteCarlo", spot_only=True)
-    if strat.use_kernel:
-        if jnp.ndim(prob.payoff.strike) > 0:
-            raise TypeError(
-                "strike grids with conditional MC are a pure-JAX feature "
-                "(one V-path set prices every strike); drop use_kernel=True"
-            )
-        from ..core.payoffs import VanillaOption
-
-        if not isinstance(prob.payoff, VanillaOption):
-            raise TypeError(
-                "the fused mixing kernels close vanilla payoffs only; "
-                f"{type(prob.payoff).__name__} needs the pure-JAX estimator "
-                "(drop use_kernel=True)"
-            )
-        if isinstance(strat, HestonExactMixing):
-            from ..ops.heston_exact_kernel import heston_exact_mixing_values_pallas
-
-            return heston_exact_mixing_values_pallas(
-                prob, config, strat, key=key, device_id=device_id,
-                point_offset=point_offset,
-            )
-        from ..ops.heston_qe_kernel import heston_qe_mixing_values_pallas
-
-        return heston_qe_mixing_values_pallas(
-            prob, config, strat, key=key, device_id=device_id, point_offset=point_offset
-        )
     if isinstance(strat, HestonExactMixing):
         return _heston_exact_mixing_values(prob, config, key, point_offset=point_offset)
     return _heston_qe_mixing_values(prob, config, key, point_offset=point_offset)
 
 
 def mc_path_values(
-    prob: PricingProblem, method: MonteCarlo, key=None, device_id=0, point_offset=0
+    prob: PricingProblem, method: MonteCarlo, key=None, point_offset=0
 ) -> jnp.ndarray:
     """Per-path undiscounted value estimates, antithetic groups averaged —
     the uniform interface the solve facade and the sharded pricer reduce
@@ -3235,7 +3121,7 @@ def mc_path_values(
     strat = method.strategy
     if _is_conditional_strategy(strat):
         values = simulate_conditional_values(
-            prob, method, key=key, device_id=device_id, point_offset=point_offset
+            prob, method, key=key, point_offset=point_offset
         )
         return jnp.mean(values, axis=0)
     from ..core.payoffs import (
@@ -3265,7 +3151,7 @@ def mc_path_values(
             prob, method, prob.payoff, key=key, point_offset=point_offset
         )
     samples = simulate_terminal_prices(
-        prob, method, key=key, device_id=device_id, point_offset=point_offset
+        prob, method, key=key, point_offset=point_offset
     )
     return reduce_payoffs(samples, prob.payoff)
 
@@ -3282,12 +3168,12 @@ def _is_conditional_strategy(strat) -> bool:
 
 
 def simulate_terminal_prices(
-    prob: PricingProblem, method: MonteCarlo, key=None, device_id=0, point_offset=0
+    prob: PricingProblem, method: MonteCarlo, key=None, point_offset=0
 ) -> jnp.ndarray:
     """Terminal asset prices, shape (n_groups, trajectories) with n_groups==2
     under antithetic pairing (original, mirrored) else 1.
 
-    ``key``/``device_id`` let sharded callers derive independent per-device
+    ``key`` lets sharded callers derive independent per-device
     streams; under QMC, ``point_offset`` gives each device a disjoint slice of
     ONE Sobol' sequence (sharding must not replicate points).
 
@@ -3306,49 +3192,22 @@ def simulate_terminal_prices(
             "mixing estimator only (terminal samples never materialize): "
             "pair HestonHullWhiteDynamics with HestonQE(conditional=True)"
         )
-    qe_kernel_qmc = isinstance(strat, HestonQE) and getattr(strat, "use_kernel", False)
-    if config.qmc and (
-        (getattr(strat, "use_kernel", False) and not qe_kernel_qmc)
-        or isinstance(strat, HestonBroadieKaya)
-    ):
-        # the GBM/Euler Pallas kernels and the Broadie-Kaya sampler draw their
-        # own PRNG streams — a silent pseudo-random fallback would betray the
-        # qmc=True accuracy contract the caller sized their path count for.
-        # (The QE kernel has an in-kernel Sobol' stream and IS supported.)
+    if config.qmc and isinstance(strat, HestonBroadieKaya):
+        # the Broadie-Kaya sampler draws its own PRNG streams — a silent
+        # pseudo-random fallback would betray the qmc=True accuracy contract
+        # the caller sized their path count for
         raise ValueError(
-            "qmc=True is not supported with the GBM/Euler kernel strategies or "
-            "HestonBroadieKaya; use the pure-JAX samplers or HestonQE(use_kernel=True)"
+            "qmc=True is not supported with HestonBroadieKaya; use the "
+            "pure-JAX QE or exact-mixing samplers"
         )
     if isinstance(strat, EulerMaruyama):
         if isinstance(dyn, LognormalDynamics):
-            if strat.use_kernel:
-                # Log-Euler GBM increments sum exactly, so the terminal
-                # distribution equals the exact sampler's — route to the
-                # fused lognormal kernel rather than silently ignoring the
-                # flag.
-                from ..ops.gbm_kernel import gbm_exact_terminal_pallas
-
-                return gbm_exact_terminal_pallas(prob, config, key=key, device_id=device_id)
             return _gbm_euler_paths(prob, config, _base_key(config, key), return_grid=False, point_offset=point_offset)
         if isinstance(dyn, HestonDynamics):
-            if strat.use_kernel:
-                from ..ops.heston_kernel import heston_euler_terminal_pallas
-
-                return heston_euler_terminal_pallas(prob, config, key=key, device_id=device_id)
             return _heston_euler_paths(prob, config, _base_key(config, key), return_grid=False, point_offset=point_offset)
     if isinstance(strat, HestonQE) and isinstance(dyn, HestonDynamics):
-        if strat.use_kernel:
-            from ..ops.heston_qe_kernel import heston_qe_terminal_pallas
-
-            return heston_qe_terminal_pallas(
-                prob, config, strat, key=key, device_id=device_id, point_offset=point_offset
-            )
         return _heston_qe_paths(prob, config, key, strat, return_grid=False, point_offset=point_offset)
     if isinstance(strat, BlackScholesExact) and isinstance(dyn, LognormalDynamics):
-        if strat.use_kernel:
-            from ..ops.gbm_kernel import gbm_exact_terminal_pallas
-
-            return gbm_exact_terminal_pallas(prob, config, key=key, device_id=device_id)
         return _gbm_exact_terminal(prob, config, _base_key(config, key), point_offset=point_offset)
     if isinstance(strat, HestonBroadieKaya) and isinstance(dyn, HestonDynamics):
         from ..distributions.broadie_kaya import broadie_kaya_terminal_prices
@@ -3357,8 +3216,6 @@ def simulate_terminal_prices(
     if isinstance(strat, MertonExact) and isinstance(dyn, MertonJumpDynamics):
         return _merton_exact_terminal(prob, config, key, point_offset=point_offset)
     if isinstance(strat, EulerMaruyama) and isinstance(dyn, MertonJumpDynamics):
-        if strat.use_kernel:
-            raise TypeError("Merton has no fused kernel; drop use_kernel=True")
         return _merton_euler_paths(
             prob, config, _base_key(config, key), return_grid=False,
             point_offset=point_offset,
@@ -3368,15 +3225,11 @@ def simulate_terminal_prices(
             prob, config, _base_key(config, key), point_offset=point_offset
         )
     if isinstance(strat, EulerMaruyama) and isinstance(dyn, KouJumpDynamics):
-        if strat.use_kernel:
-            raise TypeError("Kou has no fused kernel; drop use_kernel=True")
         return _kou_euler_paths(
             prob, config, _base_key(config, key), return_grid=False,
             point_offset=point_offset,
         )
     if isinstance(strat, EulerMaruyama) and isinstance(dyn, BatesDynamics):
-        if strat.use_kernel:
-            raise TypeError("Bates has no fused kernel; drop use_kernel=True")
         return _bates_euler_paths(
             prob, config, _base_key(config, key), return_grid=False,
             point_offset=point_offset,
@@ -3386,8 +3239,6 @@ def simulate_terminal_prices(
             prob, config, _base_key(config, key), point_offset=point_offset
         )
     if isinstance(strat, EulerMaruyama) and isinstance(dyn, VarianceGammaDynamics):
-        if strat.use_kernel:
-            raise TypeError("VG has no fused kernel; drop use_kernel=True")
         return _vg_euler_paths(
             prob, config, _base_key(config, key), return_grid=False,
             point_offset=point_offset,
@@ -3397,42 +3248,30 @@ def simulate_terminal_prices(
             prob, config, _base_key(config, key), point_offset=point_offset
         )
     if isinstance(strat, EulerMaruyama) and isinstance(dyn, NormalDynamics):
-        if strat.use_kernel:
-            raise TypeError("Bachelier has no fused kernel; drop use_kernel=True")
         return _bachelier_euler_paths(
             prob, config, _base_key(config, key), return_grid=False,
             point_offset=point_offset,
         )
     if isinstance(strat, EulerMaruyama) and isinstance(dyn, SABRDynamics):
-        if strat.use_kernel:
-            raise TypeError("SABR has no fused kernel; drop use_kernel=True")
         return _sabr_euler_paths(
             prob, config, _base_key(config, key), return_grid=False,
             point_offset=point_offset,
         )
     if isinstance(strat, EulerMaruyama) and isinstance(dyn, RoughBergomiDynamics):
-        if strat.use_kernel:
-            raise TypeError("rough Bergomi has no fused kernel; drop use_kernel=True")
         return _rbergomi_euler_paths(
             prob, config, key, return_grid=False, point_offset=point_offset
         )
     if isinstance(strat, EulerMaruyama) and isinstance(dyn, LocalVolDynamics):
-        if strat.use_kernel:
-            raise TypeError("local vol has no fused kernel; drop use_kernel=True")
         return _local_vol_euler_paths(
             prob, config, _base_key(config, key), return_grid=False,
             point_offset=point_offset,
         )
     if isinstance(strat, EulerMaruyama) and isinstance(dyn, CEVDynamics):
-        if strat.use_kernel:
-            raise TypeError("CEV has no fused kernel; drop use_kernel=True")
         return _cev_euler_paths(
             prob, config, _base_key(config, key), return_grid=False,
             point_offset=point_offset,
         )
     if isinstance(strat, EulerMaruyama) and isinstance(dyn, SLVDynamics):
-        if strat.use_kernel:
-            raise TypeError("SLV has no fused kernel; drop use_kernel=True")
         return _slv_euler_paths(
             prob, config, _base_key(config, key), return_grid=False,
             point_offset=point_offset,

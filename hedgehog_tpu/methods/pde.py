@@ -25,8 +25,8 @@ Discretization (Tavella-Randall style):
   (continuous monitoring, no monitoring-date bias); European knock-ins
   reduce by in-out parity (same identity as the CRR engine).
 
-TPU-first: each time step solves one tridiagonal system by PARALLEL CYCLIC
-REDUCTION (math/linalg.tridiag_solve_pcr) — ⌈log₂n⌉ wide VPU stages instead
+Design: each time step solves one tridiagonal system by PARALLEL CYCLIC
+REDUCTION (math/linalg.tridiag_solve_pcr) — ⌈log₂n⌉ wide stages instead
 of a length-n sequential Thomas sweep — inside one ``lax.scan`` over time;
 per-step coefficients (local vols, forward rates) are precomputed as scan
 inputs, so the loop body is a handful of fused vector ops.  The whole solve

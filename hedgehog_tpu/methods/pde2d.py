@@ -21,7 +21,7 @@ splitting in the In 't Hout-Foulon (2010) style:
   restores second order in time when A0 ≠ 0; Rannacher startup steps run
   the predictor fully implicit with the corrector off.
 
-TPU shape: every implicit solve is a BATCH of tridiagonal systems (all
+Shape: every implicit solve is a BATCH of tridiagonal systems (all
 variance rows at once along S, then all spot columns along v), each solved
 by parallel cyclic reduction (math/linalg.tridiag_solve_pcr) — wide
 vectorized stages, no sequential sweeps — inside one `lax.scan` over time.

@@ -17,7 +17,7 @@ same survival quadrature applies).
 
 and V_T | V₀ is a scaled noncentral χ²: V_T = c̄·χ'²(d, λ) with
 c̄ = σ²(1−e^{−κT})/(4κ), d = 4κθ/σ², λ = V₀e^{−κT}/c̄.  Every VIX payoff
-is therefore a 1-D integral against that law.  TPU-native evaluation uses
+is therefore a 1-D integral against that law.  The branchless evaluation uses
 the SURVIVAL form (integration by parts — no density, no v→0 singularity
 in the Feller-violating regime d < 2):
 

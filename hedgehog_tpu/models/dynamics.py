@@ -280,7 +280,7 @@ def vg_cf(u, log_s0, r, T, sigma, nu, theta, omega):
 
 
 def vg_cf_pair(u_re, u_im, log_s0, r, T, sigma, nu, theta, omega):
-    """VG CF in split-complex (re, im) pairs for the native-TPU Carr-Madan
+    """VG CF in split-complex (re, im) pairs for the "pair" Carr-Madan
     engine; math identical to :func:`vg_cf` (complex power via clog/cexp)."""
     from ..math.complexops import cexp, clog, cmul
 
@@ -312,7 +312,7 @@ def kou_cf(u, log_s0, r, T, sigma, lam, p, e1, e2, kbar):
 
 
 def kou_cf_pair(u_re, u_im, log_s0, r, T, sigma, lam, p, e1, e2, kbar):
-    """Kou CF in split-complex (re, im) pairs for the native-TPU Carr-Madan
+    """Kou CF in split-complex (re, im) pairs for the "pair" Carr-Madan
     engine; math identical to :func:`kou_cf`."""
     from ..math.complexops import cdiv, cexp
 
@@ -350,7 +350,7 @@ def merton_cf(u, log_s0, r, T, sigma, lam, mu_j, s_j, kbar):
 
 def merton_cf_pair(u_re, u_im, log_s0, r, T, sigma, lam, mu_j, s_j, kbar):
     """Merton CF in split-complex (re, im) pairs — pure real arithmetic for
-    the native-TPU Carr-Madan engine (math/complexops.py); math identical to
+    the "pair" Carr-Madan engine (math/complexops.py); math identical to
     :func:`merton_cf`."""
     from ..math.complexops import cexp
 
@@ -370,7 +370,7 @@ def lognormal_cf(u, mean, std):
     """CF of a Normal(mean, std) log-price: E[e^{iuX}] (sample_from_cf.jl:14-16).
 
     ``u`` may be complex (Carr-Madan evaluates at v − (α+1)i).  The input's
-    complex dtype is preserved (complex64 on TPU, complex128 elsewhere).
+    complex dtype is preserved.
     """
     u = jnp.asarray(u)
     if not jnp.iscomplexobj(u):
@@ -388,7 +388,7 @@ def heston_cf(u, S0, V0, kappa, theta, sigma, rho, r, T):
       D  = (κ − ρσiu − d)/σ² · (1 − e^{−dT})/(1 − g e^{−dT})
       φ  = exp(C + D·V0 + iu·log S0 + iu·rT)
 
-    Input complex dtype is preserved (complex64 on TPU, complex128 elsewhere).
+    Input complex dtype is preserved.
     """
     u = jnp.asarray(u)
     if not jnp.iscomplexobj(u):
@@ -410,7 +410,7 @@ def heston_cf(u, S0, V0, kappa, theta, sigma, rho, r, T):
 
 def heston_cf_pair(u_re, u_im, S0, V0, kappa, theta, sigma, rho, r, T):
     """Heston CF of log S_T in split-complex (re, im) pairs — pure real
-    arithmetic, so Fourier pricing runs natively on TPU (math/complexops.py).
+    arithmetic (math/complexops.py), the "pair" Carr-Madan engine.
 
     Math identical to :func:`heston_cf`.
     """

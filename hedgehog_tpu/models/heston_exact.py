@@ -6,7 +6,7 @@ time-discretization bias of the variance leg: a QE path with the trapezoid
 This module removes the discretization entirely, in the spirit of the
 reference's exact Broadie-Kaya sampler (src/distributions/heston.jl:125-143
 noncentral-χ² V_T draw; :150-212 the ∫V|endpoints Laplace transform) but in
-a branchless, fixed-trip form a TPU kernel can execute:
+a branchless, fixed-trip form:
 
 1. V_T | V_0 — the EXACT CIR transition, sampled as a Poisson(λ/2)-mixed
    Gamma(d/2+N, 2c) (the noncentral-χ² mixture representation): Poisson by
@@ -54,8 +54,6 @@ import jax.numpy as jnp
 
 __all__ = [
     "cir_exact_constants",
-    "cir_exact_kernel_coeffs",
-    "cir_exact_shared_coeffs",
     "bessel_ratio",
     "poisson_inv",
     "poisson_kmax",
@@ -77,8 +75,7 @@ CF_SWITCH = 24.0
 
 
 def poisson_kmax(kappa, theta, sigma, dt, v0, default: int = POISSON_KMAX) -> int:
-    """Static Poisson trip count with a provable-tail heuristic (shared by
-    the pure-JAX estimator and the TPU kernels).
+    """Static Poisson trip count with a provable-tail heuristic.
 
     Bound the per-segment rate by λ/2 at v_b = m + 6s, where (m, s) are the
     exact CIR transition mean/std started from the worst deterministic level
@@ -146,49 +143,6 @@ def cir_exact_constants(kappa, theta, sigma, dt):
         q=(1.0 - t2 * c1) / kappa,
         p_c=-(dt / kappa) * c1 + (dt * dt / 4.0) * (c1 * c1 + c2),
         inv_sig2=1.0 / sigma**2,
-    )
-
-
-def cir_exact_shared_coeffs(kappa, theta, sigma):
-    """dt-INDEPENDENT scalar coefficients the fused kernels load into SMEM,
-    derived in ONE place so the price and surface kernels cannot drift:
-    (d_half, nu, nu2, an1-3, ad1-3 [Bessel asymptotic-series], m1f, s2f,
-    inv_kappa)."""
-    d_half = 2.0 * kappa * theta / sigma**2
-    nu = d_half - 1.0
-
-    def asym_coeffs(m):
-        mu = 4.0 * m * m
-        return (mu - 1.0, (mu - 1.0) * (mu - 9.0) / 2.0,
-                (mu - 1.0) * (mu - 9.0) * (mu - 25.0) / 6.0)
-
-    an, ad = asym_coeffs(nu + 1.0), asym_coeffs(nu)
-    sig2_over_k = sigma**2 / kappa
-    return dict(
-        d_half=d_half, nu=nu, nu2=nu * nu,
-        an1=an[0], an2=an[1], an3=an[2], ad1=ad[0], ad2=ad[1], ad3=ad[2],
-        m1f=-sig2_over_k, s2f=sig2_over_k * sig2_over_k,
-        inv_kappa=1.0 / kappa,
-    )
-
-
-def cir_exact_kernel_coeffs(kappa, theta, sigma, dt):
-    """dt-DEPENDENT scalar coefficients for one segment length, the SMEM
-    companion of :func:`cir_exact_shared_coeffs`: (lam_fac, two_cfac, z_fac)
-    plus the assembled Laplace-moment linear forms
-    l1 = l1c − (x+y)·l1x + W·q and
-    l2 = l2c + (x+y)·l2x + (z² + ν² − W − W²)·q² + W·p_c
-    (the iv_cond_moments math flattened onto per-path FMAs)."""
-    c = cir_exact_constants(kappa, theta, sigma, dt)
-    t2, c1, c2 = c["t2"], c["c1"], c["c2"]
-    inv_sig2 = c["inv_sig2"]
-    return dict(
-        lam_fac=c["lam_fac"], two_cfac=2.0 * c["cfac"], z_fac=c["z_fac"],
-        l1c=1.0 / kappa - (dt / 2.0) * c1,
-        l1x=(c1 - t2 * c2) * inv_sig2,
-        l2c=-1.0 / kappa**2 + (dt * dt / 4.0) * c2,
-        l2x=(dt * c2 - kappa * (dt * dt / 2.0) * c2 * c1) * inv_sig2,
-        q=c["q"], q2=c["q"] * c["q"], p_c=c["p_c"],
     )
 
 

@@ -10,8 +10,8 @@ The result: vanilla-price bias well under 1bp at 8-16 steps, i.e. ~6-12×
 fewer steps than Euler at the same accuracy — the main lever for the
 paths/sec-at-5bp throughput target.
 
-Everything is branchless (`jnp.where` over both branches) so it vectorizes on
-the VPU and ports directly into the Pallas kernel (ops/heston_qe_kernel).
+Everything is branchless (`jnp.where` over both branches) so it vectorizes
+over the path axis.
 """
 
 from __future__ import annotations
@@ -41,10 +41,9 @@ def matched_gammas(kappa, dt):
     at every step size (→ (½, ½) as κΔ → 0).  Zero runtime cost: the γs only
     enter the precomputed K1..K4.
 
-    Empirical caveat (measured on TPU, benchmarks/qe_bias_sweep.py, κ=2,
-    σ=0.3, ρ=−0.7, T≈1 ATM call): exact-mean weights do NOT reduce vanilla
-    price bias — they flip it positive and enlarge it (QE-8: −5.4bp central
-    → +13.0bp matched), because the price bias is dominated by the joint
+    Empirical caveat (an earlier bias sweep, κ=2, σ=0.3, ρ=−0.7, T≈1 ATM
+    call): exact-mean weights do NOT reduce vanilla price bias — they flip
+    it positive and enlarge it, because the price bias is dominated by the joint
     (∫V, ∫√V dW) covariance error, not the ∫V mean.  The central default
     stays γ1 = γ2 = ½ (Andersen 2008 §4.2); this rule is provided for study
     and for TG-style schemes that need the exact-mean weights.
@@ -136,16 +135,15 @@ def qe_v_step(v, z, u, c):
 
 
 def qe_v_step_with_coeffs(v, z, u, c):
-    """Variance QE step + hand-derived tangent coefficients (f64 twin of the
-    kernel's _qe_v_coeffs, mirroring :func:`_qe_v_draw`'s guards exactly).
+    """Variance QE step + hand-derived tangent coefficients (mirroring
+    :func:`_qe_v_draw`'s guards exactly).
 
     Returns ``(vn, cm, cs)`` with ∂vn/∂x = cm·(∂m/∂x) + cs·(∂s2/∂x) for any
     input x, where m = θc+(v−θc)e and s2 = v·c1+c2 are the two moment
     channels.  The coefficients are computed ONCE per step and shared by all
     tangent directions — forward-mode greeks then cost a few broadcast FMAs
-    per direction instead of a re-walk of the sqrt/log/div chain (which on
-    TPU under f64 emulation was measured ~25× the primal when generated by
-    generic per-direction linearization).
+    per direction instead of a re-walk of the sqrt/log/div chain by generic
+    per-direction linearization.
     """
     theta = c["theta"]
     e = c["e"]

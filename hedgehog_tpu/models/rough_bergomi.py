@@ -1,7 +1,7 @@
-"""Rough Bergomi model (Bayer-Friz-Gatheral 2016) — TPU-first simulation.
+"""Rough Bergomi model (Bayer-Friz-Gatheral 2016) — exact-Volterra simulation.
 
 Beyond-reference model family (the reference covers BS + Heston;
-/root/reference/src/distributions/heston.jl is its only stochastic-vol
+src/distributions/heston.jl is its only stochastic-vol
 model).  Rough Bergomi is the canonical *rough volatility* model:
 
     V_t = xi0 · exp(η·Z_t − ½η²·t^{2H}),
@@ -12,16 +12,15 @@ with Hurst index H ∈ (0, ½] — H ≈ 0.05-0.15 reproduces the power-law ATM
 skew term structure (∝ T^{H−½}) equity markets show.  V is non-Markovian:
 there is no finite-dimensional SDE state, no characteristic function, and
 no closed-form vanilla price — Monte Carlo IS the pricing method, which is
-exactly why the model belongs in a TPU-first framework.
+exactly why the model belongs in an accelerator framework.
 
-TPU-first design
-----------------
+Design
+------
 The standard simulation scheme in the literature is the *hybrid scheme*
 (Bennedsen-Lunde-Pakkanen 2017): truncate the singular kernel, convolve by
 FFT — O(n log n) per path, chosen because on CPUs an O(n²) dense approach
-is "too slow".  On a TPU that trade is backwards: the MXU makes a
-(2n × 2n) @ (2n × paths) matmul effectively free at n ≲ 512, so this
-module draws the joint Gaussian vector
+is "too slow".  On an accelerator that trade is backwards: a
+(2n × 2n) @ (2n × paths) matmul is cheap at n ≲ 512, so this module draws the joint Gaussian vector
 
     X = (ΔW1_0, …, ΔW1_{n−1},  Z_{t_1}, …, Z_{t_n})
 
@@ -145,7 +144,7 @@ def rbergomi_variance(market, z, t_left):
     (``xi0`` scalar = flat forward variance; a
     :class:`ForwardVarianceCurve` = the practitioner fit to the
     variance-swap strip).  ``z``: (..., n) with z[..., 0] ≡ Z_0 = 0."""
-    dt_ = jnp.asarray(z).dtype  # follow the draw dtype (f32 fast path on TPU)
+    dt_ = jnp.asarray(z).dtype  # follow the draw dtype (the fp32=True path)
     eta = jnp.asarray(market.eta, dt_)
     t2h = _pow(jnp.asarray(t_left, dt_), jnp.asarray(2.0 * market.hurst, dt_))
     xi0 = market.xi0

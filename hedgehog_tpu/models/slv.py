@@ -16,12 +16,12 @@ surface (models/local_vol.py).  ``m`` is the mixing fraction (how much of
 the smile dynamics is stochastic): m = 0 collapses to pure local vol,
 m = 1 is full Heston vol-of-vol; vanillas are repriced at EVERY m.
 
-TPU-native calibration (`calibrate_leverage`) is the Guyon &
-Henry-Labordère particle method re-designed for the MXU: ONE `lax.scan`
+The calibration (`calibrate_leverage`) is the Guyon & Henry-Labordère
+particle method re-designed around matmuls: ONE `lax.scan`
 over time steps carries the particle cloud (logS, V); each step estimates
 E[V | S] on a fixed log-spot grid by a Nadaraya-Watson Gaussian-kernel
 regression — two (bins × paths) matmuls, i.e. the per-step interaction is
-a pair of MXU contractions instead of the CPU-era sorted binning — then
+a pair of dense contractions instead of sorted binning — then
 advances the particles with the freshly fixed leverage row.  Everything is
 fixed-shape, jit-able, and differentiable end to end (the calibrated
 leverage is itself a smooth function of spot/rate/Heston params, so
@@ -80,7 +80,7 @@ def leverage_at(lev: LeverageSurface, t, x):
 
 def _conditional_variance(x, v, x_grid, bandwidth, shrink=1e-2):
     """Nadaraya-Watson E[V | logS = x_grid] from the particle cloud —
-    two (bins × paths) MXU contractions.  A ``shrink``-weighted prior at
+    two (bins × paths) contractions.  A ``shrink``-weighted prior at
     the cloud mean regularizes wing nodes the cloud barely visits (a node
     carrying less than ~``shrink`` particles' worth of kernel mass reads
     as the unconditional mean instead of one far particle's V — keeps the

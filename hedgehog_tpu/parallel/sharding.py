@@ -2,7 +2,7 @@
 
 The distributed story of the framework (SURVEY §2c): this domain is
 embarrassingly parallel across *paths* and *instruments*.  We shard the path
-axis over ICI with ``shard_map``; per-device RNG streams are derived by
+axis with ``shard_map``; per-device RNG streams are derived by
 folding the device index into the base key (zero communication for sampling),
 and the only collective is the ``psum`` of payoff sums — exactly the
 "path sharding + RNG stream discipline + psum reduction" recipe.  The LSM
@@ -29,10 +29,8 @@ from ..methods.montecarlo import MonteCarlo, mc_path_values
 
 __all__ = [
     "make_paths_mesh",
-    "make_multislice_mesh",
     "sharded_mc_price",
     "sharded_mc_price_fn",
-    "sharded_mc_price_multislice_fn",
     "sharded_lsm_price",
     "sharded_lsm_price_fn",
     "sharded_surface_fn",
@@ -45,31 +43,6 @@ def make_paths_mesh(devices=None, axis_name: str = "paths") -> Mesh:
 
     devices = jax.devices() if devices is None else devices
     return Mesh(np.asarray(devices), (axis_name,))
-
-
-def make_multislice_mesh(
-    n_slices: int,
-    devices=None,
-    axis_names: tuple = ("slice", "paths"),
-) -> Mesh:
-    """2-D (slice × paths) mesh — the multi-slice (DCN) topology, virtually.
-
-    On real hardware the leading axis would span TPU slices connected over
-    DCN and the trailing axis the chips within a slice on ICI; giant path
-    counts scale across slices with per-slice psums over ICI combined by ONE
-    final cross-slice psum (SURVEY §2c / §5).  On the virtual CPU mesh the
-    same program exercises the identical collective structure."""
-    import numpy as np
-
-    devices = jax.devices() if devices is None else devices
-    if len(devices) % n_slices != 0:
-        raise ValueError(
-            f"{len(devices)} devices do not divide into {n_slices} slices"
-        )
-    return Mesh(
-        np.asarray(devices).reshape(n_slices, len(devices) // n_slices),
-        axis_names,
-    )
 
 
 def _local_method(method: MonteCarlo, n_dev: int) -> MonteCarlo:
@@ -125,7 +98,7 @@ def sharded_mc_price_fn(method: MonteCarlo, mesh: Mesh, axis_name: str = "paths"
         key, offset = _device_key_and_offset(local.config, idx)
         # per-path values (terminal payoffs OR conditional-MC vanilla values);
         # sum over the path axis only so array-strike grids keep their axis
-        values = mc_path_values(prob, local, key=key, device_id=idx, point_offset=offset)
+        values = mc_path_values(prob, local, key=key, point_offset=offset)
         local_sum = jnp.sum(values, axis=-1)
         total = jax.lax.psum(local_sum, axis_name)
         discount = df(prob.market_inputs.rate, prob.payoff.expiry)
@@ -138,51 +111,6 @@ def sharded_mc_price(prob: PricingProblem, method: MonteCarlo, mesh: Optional[Me
     """Price a European option with paths sharded across all devices."""
     mesh = mesh or make_paths_mesh()
     return sharded_mc_price_fn(method, mesh)(prob)
-
-
-def sharded_mc_price_multislice_fn(
-    method: MonteCarlo,
-    mesh: Mesh,
-    slice_axis: str = "slice",
-    path_axis: str = "paths",
-):
-    """Build ``price(prob) -> scalar`` over a multi-slice (slice × paths) mesh.
-
-    The DCN scaling story (SURVEY §2c): payoff sums are first psum'ed over
-    the ``paths`` axis — chips within a slice, riding ICI — and the per-slice
-    partials combine through ONE final psum over the ``slice`` axis, the only
-    collective that would cross DCN.  RNG streams are derived from the GLOBAL
-    device index (slice·per_slice + path), exactly the flat enumeration the
-    1-D path mesh uses, so the multi-slice price is bit-identical (modulo
-    psum summation order) to both the 1-D sharded price and the
-    single-device solve — asserted by tests/unit/test_sharding.py and dryrun
-    phase 5.  Differentiable: grad flows through both psums.
-    """
-    n_slices = mesh.shape[slice_axis]
-    n_per_slice = mesh.shape[path_axis]
-    local = _local_method(method, n_slices * n_per_slice)
-    total_paths = method.config.trajectories
-
-    @partial(
-        shard_map,
-        mesh=mesh,
-        in_specs=(P(),),
-        out_specs=P(),
-        check_vma=False,
-    )
-    def price(prob: PricingProblem):
-        s_idx = jax.lax.axis_index(slice_axis)
-        p_idx = jax.lax.axis_index(path_axis)
-        gidx = s_idx * n_per_slice + p_idx
-        key, offset = _device_key_and_offset(local.config, gidx)
-        values = mc_path_values(prob, local, key=key, device_id=gidx, point_offset=offset)
-        local_sum = jnp.sum(values, axis=-1)
-        slice_sum = jax.lax.psum(local_sum, path_axis)  # intra-slice, ICI
-        total = jax.lax.psum(slice_sum, slice_axis)  # cross-slice, DCN (one psum)
-        discount = df(prob.market_inputs.rate, prob.payoff.expiry)
-        return discount * total / total_paths
-
-    return price
 
 
 def sharded_surface_fn(method: MonteCarlo, mesh: Mesh, axis_name: str = "paths"):

@@ -21,10 +21,12 @@ from hedgehog_tpu import (
     CarrMadan,
     European,
     HestonDynamics,
+    HestonExactMixing,
     HestonInputs,
     HestonQE,
     LognormalDynamics,
     MonteCarlo,
+    NoVarianceReduction,
     PricingProblem,
     Put,
     SimulationConfig,
@@ -206,13 +208,23 @@ def test_mixing_strike_grid_sharded():
     np.testing.assert_allclose(np.asarray(p_sharded), np.asarray(p_single), rtol=1e-9)
 
 
-def test_mixing_strike_grid_rejects_kernel():
-    strikes = jnp.array([90.0, 100.0])
-    cfg = SimulationConfig(trajectories=64, steps=2)
-    method = MonteCarlo(HestonDynamics(), HestonQE(conditional=True, use_kernel=True), cfg)
-    prob = PricingProblem(VanillaOption(strikes, EXPIRY, European(), Call(), Spot()), MARKET)
-    with pytest.raises(TypeError, match="strike grids"):
-        solve(prob, method)
+@pytest.mark.parametrize("antithetic", [True, False], ids=["antithetic", "plain"])
+@pytest.mark.parametrize("strategy", [HestonQE(conditional=True), HestonExactMixing()],
+                         ids=["qe_mixing", "exact_mixing"])
+def test_mixing_strike_grid_path_values(strategy, antithetic):
+    """Both mixing estimators price a strike grid from ONE V-path set:
+    mc_path_values is (strikes, paths) with the path axis last, and each
+    row equals the scalar-strike values of the same seed."""
+    strikes = jnp.array([90.0, 100.0, 110.0])
+    cfg = SimulationConfig(trajectories=256, steps=2, seed=3,
+                           variance_reduction=Antithetic() if antithetic else NoVarianceReduction())
+    method = MonteCarlo(HestonDynamics(), strategy, cfg)
+    grid = mc_path_values(
+        PricingProblem(VanillaOption(strikes, EXPIRY, European(), Call(), Spot()), MARKET), method)
+    assert grid.shape == (3, 256)
+    for i, k in enumerate(strikes):
+        row = mc_path_values(_prob_k(float(k)), method)
+        np.testing.assert_allclose(np.asarray(grid[i]), np.asarray(row), rtol=1e-12)
 
 
 def test_qe_gradient_finite_in_high_psi_regime():
@@ -310,22 +322,6 @@ def test_sharded_surface_matches_unsharded_qmc():
     np.testing.assert_allclose(np.asarray(sharded), np.asarray(single), rtol=1e-9)
 
 
-def test_surface_tpu_adapter_cpu_fallback():
-    """Off-TPU the kernel adapter must route to the pure-JAX estimator with
-    identical semantics (same config → same allocation rule)."""
-    from hedgehog_tpu import heston_surface_mc
-    from hedgehog_tpu.ops.heston_qe_kernel import heston_surface_mc_tpu
-
-    expiries = [dt.date(2020, 7, 1), dt.date(2021, 1, 1)]
-    strikes = jnp.array([95.0, 105.0])
-    cfg = SimulationConfig(
-        trajectories=4_000, steps=8, variance_reduction=Antithetic(), seed=2, qmc=True
-    )
-    a = heston_surface_mc_tpu(MARKET, expiries, strikes, cfg)
-    b = heston_surface_mc(MARKET, expiries, strikes, cfg)
-    np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=1e-12)
-
-
 def test_heston_surface_mc_validation_and_grad():
     from hedgehog_tpu import heston_surface_mc
 
@@ -411,28 +407,3 @@ def test_calibration_through_conditional_mc_public_api():
     )
     assert float(res.u[0]) == pytest.approx(0.04, rel=5e-2)
     assert float(res.u[1]) == pytest.approx(0.30, rel=5e-2)
-
-
-def test_mixing_kernel_interpret_matches_pure_jax():
-    """The QMC mixing kernel (interpret mode) draws the SAME randomized
-    Sobol' points as the pure-JAX estimator (shared digital shift), so
-    per-path values agree to fp32-vs-f64 drift and the means tightly."""
-    from hedgehog_tpu.methods.montecarlo import _heston_qe_mixing_values
-    from hedgehog_tpu.ops.heston_qe_kernel import heston_qe_mixing_values
-
-    prob = _prob(Call())
-    steps, n = 2, 32_768
-    T = 366 / 365  # 2020 is a leap year: ACT/365 yearfrac of one calendar year
-    vals_k = heston_qe_mixing_values(
-        jnp.log(100.0), 0.04, 0.03, 2.0, 0.04, 0.3, -0.7, T / steps, 100.0, 1.0,
-        n_paths=n, steps=steps, seed=5, antithetic=True, qmc=True, interpret=True,
-    )
-    cfg = SimulationConfig(
-        trajectories=n, steps=steps, variance_reduction=Antithetic(), seed=5, qmc=True
-    )
-    vals_j = _heston_qe_mixing_values(prob, cfg, jax.random.PRNGKey(5))
-    np.testing.assert_allclose(
-        float(jnp.mean(vals_k)), float(jnp.mean(vals_j)), rtol=1e-4
-    )
-    rel = jnp.abs(vals_k.astype(jnp.float64) - vals_j) / (jnp.abs(vals_j) + 1.0)
-    assert float(rel.max()) < 2e-2

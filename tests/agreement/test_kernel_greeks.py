@@ -1,17 +1,6 @@
-"""Differentiable kernel pricing (round-3 VERDICT item 1) + kernel QMC
-(item 4): the forward-mode mixing greeks and the Sobol'-drawing accumulating
-kernels, validated on CPU.
-
-- Pure-JAX forward-mode greeks (methods/mixing_greeks.py) must equal reverse
-  AD through the seeded ``solve`` to machine precision — same draws, same
-  estimator, independent derivation.
-- The Pallas greek/price/surface kernels' QMC variants are pure bit
-  arithmetic, so they run under interpret mode and are compared against the
-  pure-JAX Sobol' path drawing the SAME randomized points (fp32 + the
-  kernel's Φ/Φ⁻¹ approximations bound the tolerance ~1e-4).
-- The PRNG variants can only run on real TPU hardware; their stream-replay
-  property (value_and_grad price == price-only kernel price bit-for-bit) is
-  exercised by benchmarks/kernel_greeks_bench.py on the bench host.
+"""Forward-mode mixing greeks (methods/mixing_greeks.py), validated on CPU:
+they must equal reverse AD through the seeded ``solve`` to machine
+precision — same draws, same estimator, independent derivation.
 """
 
 import datetime as dt
@@ -78,182 +67,3 @@ def test_forward_greeks_rejects_wrong_method():
                         hh.SimulationConfig(trajectories=64, steps=2))
     with pytest.raises(TypeError):
         heston_mixing_price_and_greeks(hh.PricingProblem(_payoff(100.0), market), bad)
-
-
-# ---- kernel QMC variants under interpret mode ----
-
-T = None  # filled lazily (yearfrac needs no jit context)
-
-
-def _t():
-    return float(hh.yearfrac(REF, hh.to_ticks(EXPIRY)))
-
-
-def test_greek_kernel_qmc_matches_pure_jax_interpret():
-    from hedgehog_tpu.ops.heston_qe_greeks_kernel import (
-        heston_qe_mixing_price_and_greeks,
-    )
-
-    steps, n_pairs, strike = 6, 32768, 120.0
-    method = _method(n_pairs, steps, qmc=True, seed=5)
-    market = hh.HestonInputs(REF, R, SPOT, *H.values())
-    p_ref, g_ref = heston_mixing_price_and_greeks(
-        hh.PricingProblem(_payoff(strike), market), method
-    )
-    D = float(np.exp(-R * _t()))
-    p_k, g_k = heston_qe_mixing_price_and_greeks(
-        np.log(SPOT), H["V0"], R, H["kappa"], H["theta"], H["sigma"], H["rho"],
-        _t() / steps, strike, D, n_blocks=1, n_batches=1, steps=steps, seed=5,
-        qmc=True, interpret=True,
-    )
-    np.testing.assert_allclose(float(p_k), float(p_ref), rtol=2e-4)
-    gr = np.array([float(g_ref[k]) for k in GREEK_ORDER])
-    gk = np.asarray(g_k)
-    scale = np.abs(gr).max()
-    # fp32 accumulation + kernel Φ/Φ⁻¹ approximations; near-zero greeks are
-    # cancellation-dominated, so tolerate abs error relative to the vector
-    assert (np.abs(gr - gk) <= np.maximum(5e-3 * np.abs(gr), 1e-3 * scale)).all(), (
-        gr, gk,
-    )
-
-
-def test_price_kernel_qmc_matches_pure_jax_interpret():
-    from hedgehog_tpu.ops.heston_qe_kernel import heston_qe_mixing_vanilla_price
-
-    steps, n_pairs = 6, 2 * 32768  # n_batches=2 exercises batch point indexing
-    method = _method(n_pairs, steps, qmc=True, seed=9)
-    market = hh.HestonInputs(REF, R, SPOT, *H.values())
-    p_ref = float(hh.solve(hh.PricingProblem(_payoff(100.0), market), method).price)
-    D = float(np.exp(-R * _t()))
-    p_k = float(heston_qe_mixing_vanilla_price(
-        np.log(SPOT), H["V0"], R, H["kappa"], H["theta"], H["sigma"], H["rho"],
-        _t() / steps, 100.0, D, n_blocks=1, n_batches=2, steps=steps, seed=9,
-        qmc=True, interpret=True,
-    ))
-    np.testing.assert_allclose(p_k, p_ref, rtol=3e-4)
-
-
-def test_surface_kernel_qmc_matches_pure_jax_interpret():
-    from hedgehog_tpu.methods.montecarlo import (
-        surface_seg_steps,
-        validate_surface_expiries,
-    )
-    from hedgehog_tpu.ops.heston_qe_kernel import heston_qe_mixing_surface_price
-
-    market = hh.HestonInputs(REF, R, SPOT, *H.values())
-    expiries = [dt.date(2024, 7, 1), dt.date(2025, 1, 1)]
-    strikes = jnp.array([90.0, 100.0, 110.0])
-    cfg = hh.SimulationConfig(
-        trajectories=2 * 32768, steps=8, variance_reduction=hh.Antithetic(),
-        seed=9, qmc=True,
-    )
-    surf_ref = np.asarray(hh.heston_surface_mc(market, expiries, strikes, cfg))
-    T_host = validate_surface_expiries(market, expiries)
-    _, seg_steps = surface_seg_steps(T_host, cfg.steps)
-    discounts = jnp.stack([jnp.exp(jnp.asarray(-R * t)) for t in T_host])
-    surf_k = np.asarray(heston_qe_mixing_surface_price(
-        np.log(SPOT), H["V0"], R, H["kappa"], H["theta"], H["sigma"], H["rho"],
-        tuple(T_host), strikes, discounts, seg_steps=tuple(seg_steps), n_strikes=3,
-        n_blocks=1, n_batches=2, seed=9, qmc=True, interpret=True,
-    ))
-    np.testing.assert_allclose(surf_k, surf_ref, rtol=5e-4)
-
-
-def test_surface_jacobian_kernel_qmc_matches_pure_jax_interpret():
-    """Surface-Jacobian kernel (round 3): the whole (expiry × strike)
-    surface + its 7-param Jacobian in one pass, vs jax.jacfwd of the
-    pure-JAX QMC surface on the same Sobol' points."""
-    from hedgehog_tpu.methods.montecarlo import (
-        surface_seg_steps,
-        validate_surface_expiries,
-    )
-    from hedgehog_tpu.ops.heston_qe_greeks_kernel import (
-        heston_qe_mixing_surface_price_and_jacobian,
-    )
-
-    expiries = [dt.date(2024, 7, 1), dt.date(2025, 1, 1)]
-    strikes = jnp.array([90.0, 100.0, 110.0])
-    n_pairs, steps, seed = 32768, 8, 9
-    market = hh.HestonInputs(REF, R, SPOT, *H.values())
-    T_host = validate_surface_expiries(market, expiries)
-    _, seg_steps = surface_seg_steps(T_host, steps)
-    discounts = jnp.exp(-R * jnp.asarray(T_host))
-
-    surf_k, jac_k = heston_qe_mixing_surface_price_and_jacobian(
-        np.log(SPOT), H["V0"], R, H["kappa"], H["theta"], H["sigma"], H["rho"],
-        tuple(T_host), strikes, discounts, seg_steps=tuple(seg_steps),
-        n_strikes=3, n_blocks=1, n_batches=1, seed=seed, qmc=True, interpret=True,
-    )
-
-    cfg = hh.SimulationConfig(
-        trajectories=n_pairs, steps=steps, variance_reduction=hh.Antithetic(),
-        seed=seed, qmc=True,
-    )
-
-    def surface(params):
-        spot, v0, kappa, theta, sigma, rho, r = params
-        m = hh.HestonInputs(REF, r, spot, v0, kappa, theta, sigma, rho)
-        return hh.heston_surface_mc(m, expiries, strikes, cfg)
-
-    params = jnp.array([SPOT, H["V0"], H["kappa"], H["theta"], H["sigma"],
-                        H["rho"], R])
-    np.testing.assert_allclose(
-        np.asarray(surf_k), np.asarray(surface(params)), rtol=3e-4
-    )
-    jr = np.asarray(jax.jacfwd(surface)(params))
-    jk = np.asarray(jac_k)
-    scale = np.abs(jr).max(axis=(0, 1), keepdims=True)
-    assert (np.abs(jr - jk) <= np.maximum(5e-3 * np.abs(jr), 2e-3 * scale)).all()
-
-
-def test_weighted_vjp_kernel_qmc_matches_pure_jax_interpret():
-    """The QMC cotangent-weighted VJP kernel (custom-vjp backward of
-    heston_qe_mixing_values(qmc=True)) must match jax.grad of the SAME
-    cotangent-weighted sum through the pure-JAX Sobol' path — the in-kernel
-    stream draws the identical points (fp32 + Φ⁻¹ approximation bound the
-    tolerance)."""
-    from hedgehog_tpu.methods.montecarlo import _heston_qe_mixing_values
-    from hedgehog_tpu.ops.heston_qe_greeks_kernel import _mixing_values_vjp
-
-    n_pairs, steps, seed, strike = 4096, 6, 7, 100.0
-    T = float(hh.yearfrac(REF, EXPIRY))
-    dt_ = T / steps
-    idx = jnp.arange(2 * n_pairs, dtype=jnp.float64).reshape(2, n_pairs)
-    ct = 0.5 + 0.5 * jnp.sin(idx)  # arbitrary smooth per-path cotangents
-
-    grads = _mixing_values_vjp(
-        jnp.log(SPOT), H["V0"], R, H["kappa"], H["theta"], H["sigma"],
-        H["rho"], dt_, strike, 1.0, ct,
-        n_paths=n_pairs, steps=steps, seed=seed, antithetic=True,
-        qmc=True, interpret=True,
-    )
-
-    cfg = hh.SimulationConfig(
-        trajectories=n_pairs, steps=steps, variance_reduction=hh.Antithetic(),
-        seed=seed, qmc=True,
-    )
-    payoff = hh.VanillaOption(strike, EXPIRY, hh.European(), hh.Call(), hh.Spot())
-
-    def weighted_sum(p):
-        log_s0, v0, r, kappa, theta, sigma, rho, k = tuple(p)
-        market = hh.HestonInputs(REF, r, jnp.exp(log_s0), v0, kappa, theta,
-                                 sigma, rho)
-        pay = hh.VanillaOption(k, EXPIRY, hh.European(), hh.Call(), hh.Spot())
-        vals = _heston_qe_mixing_values(
-            hh.PricingProblem(pay, market), cfg, None
-        )
-        return jnp.sum(ct * vals)
-
-    p0 = jnp.array([jnp.log(SPOT), H["V0"], R, H["kappa"], H["theta"],
-                    H["sigma"], H["rho"], strike], jnp.float64)
-    want = jax.grad(weighted_sum)(p0)
-    # kernel grads order: (log_s0, v0, r, kappa, theta, sigma, rho, dt, strike)
-    got = [grads[i] for i in (0, 1, 2, 3, 4, 5, 6, 8)]
-    # rho's weighted sum is a small difference of large fp32 f_eff·(j−ρ·iv)
-    # terms (−33 vs ~2.8e5 for the big greeks) — measured rel ≈ 1.4e-2 of
-    # cancellation noise; everything else agrees to ≤3e-4
-    for name, g, w in zip(
-        ("log_s0", "V0", "r", "kappa", "theta", "sigma", "rho", "strike"),
-        got, want,
-    ):
-        assert float(g) == pytest.approx(float(w), rel=2e-2, abs=5e-2), name

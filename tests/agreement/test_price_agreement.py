@@ -57,8 +57,8 @@ def test_carr_madan_vs_analytic_maturity_grid(T_days, cp):
 
 
 def test_carr_madan_pair_engine_matches_complex():
-    """Split-complex (TPU-native) CM engine vs native complex128 — must agree
-    to f64 roundoff; the pair path is what runs on-chip (no c128 on TPU)."""
+    """Split-complex ("pair") CM engine vs native complex128 — must agree
+    to f64 roundoff."""
     from hedgehog_tpu import HestonDynamics, HestonInputs
 
     market = HestonInputs(REF, 0.03, 100.0, 0.04, 2.0, 0.04, 0.3, -0.7)

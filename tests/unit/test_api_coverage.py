@@ -1,5 +1,5 @@
 """Coverage for smaller public APIs: complexops vs numpy, log_dynamics,
-lens_get/lens_set, kernel CPU fallbacks, checkpoint error path, profiling."""
+lens_get/lens_set, checkpoint error path, profiling."""
 
 import datetime as dt
 
@@ -56,34 +56,6 @@ def test_lens_get_set_module_functions():
     prob2 = hh.lens_set(prob, lens, 120.0)
     assert float(hh.lens_get(prob2, lens)) == 120.0
     assert float(hh.lens_get(prob, lens)) == 100.0  # original untouched
-
-
-def test_kernel_flag_cpu_fallbacks_price_correctly():
-    """use_kernel=True off-TPU must fall back to the pure-JAX samplers and
-    still price correctly (statistically)."""
-    market = hh.BlackScholesInputs(REF, 0.05, 100.0, 0.2)
-    prob = hh.PricingProblem(
-        hh.VanillaOption(100.0, EXPIRY, hh.European(), hh.Call(), hh.Spot()), market
-    )
-    truth = float(hh.solve(prob, hh.BlackScholesAnalytic()).price)
-    cfg = hh.SimulationConfig(trajectories=200_000, seed=0)
-    p = float(
-        hh.solve(
-            prob, hh.MonteCarlo(hh.LognormalDynamics(), hh.BlackScholesExact(use_kernel=True), cfg)
-        ).price
-    )
-    assert p == pytest.approx(truth, rel=2e-2)
-
-    hmkt = hh.HestonInputs(REF, 0.03, 100.0, 0.04, 2.0, 0.04, 0.3, -0.7)
-    hprob = hh.PricingProblem(
-        hh.VanillaOption(100.0, EXPIRY, hh.European(), hh.Call(), hh.Spot()), hmkt
-    )
-    cm = float(hh.solve(hprob, hh.CarrMadan(1.0, 32.0, hh.HestonDynamics())).price)
-    cfg = hh.SimulationConfig(trajectories=100_000, steps=16, seed=1)
-    for strat in (hh.HestonQE(use_kernel=True), hh.EulerMaruyama(use_kernel=True)):
-        p = float(hh.solve(hprob, hh.MonteCarlo(hh.HestonDynamics(), strat, cfg)).price)
-        assert p == pytest.approx(cm, rel=3e-2), type(strat).__name__
-
 
 def test_checkpoint_structure_mismatch():
     from hedgehog_tpu.utils.checkpoint import load_pytree, save_pytree

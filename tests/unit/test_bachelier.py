@@ -240,10 +240,6 @@ def test_guards():
         hh.solve(hh.PricingProblem(
             hh.VanillaOption(95.0, EXPIRY, hh.American(), hh.Put(), hh.Spot()),
             _market()), hh.BachelierAnalytic())
-    with pytest.raises(TypeError, match="no fused kernel"):
-        hh.solve(hh.PricingProblem(_opt(), _market()),
-                 hh.MonteCarlo(hh.NormalDynamics(), hh.EulerMaruyama(use_kernel=True),
-                               hh.SimulationConfig(trajectories=256, steps=2, seed=0)))
     with pytest.raises(TypeError, match="normal-model closed form"):
         hh.solve(hh.PricingProblem(
             hh.BarrierOption(95.0, EXPIRY, 80.0), _market()), hh.BachelierAnalytic())

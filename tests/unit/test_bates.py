@@ -134,14 +134,6 @@ def test_dividend_identity_and_guards():
     p0 = float(hh.solve(hh.PricingProblem(_opt(), m_0), _cm()).price)
     assert pq == pytest.approx(p0, abs=1e-9)
     cfg = hh.SimulationConfig(trajectories=256, steps=2, seed=0)
-    with pytest.raises(TypeError, match="Heston-only"):
-        hh.solve(hh.PricingProblem(_opt(), _market()),
-                 hh.MonteCarlo(hh.BatesDynamics(),
-                               hh.HestonQE(conditional=True, use_kernel=True), cfg))
-    with pytest.raises(TypeError, match="no fused kernel"):
-        hh.solve(hh.PricingProblem(_opt(), _market()),
-                 hh.MonteCarlo(hh.BatesDynamics(),
-                               hh.EulerMaruyama(use_kernel=True), cfg))
     with pytest.raises(TypeError, match="HestonQE\\(conditional=True\\)"):
         hh.solve(hh.PricingProblem(_opt(), _market()),
                  hh.MonteCarlo(hh.BatesDynamics(), hh.HestonExactMixing(), cfg))

@@ -181,15 +181,6 @@ def test_lsm_american_digital_runs_and_dominates_european():
     assert p_am >= p_eu - 0.05
 
 
-def test_digital_kernel_path_raises():
-    prob = hh.PricingProblem(_digital(), _heston_market())
-    cfg = hh.SimulationConfig(trajectories=1 << 12, steps=2,
-                              variance_reduction=hh.Antithetic(), seed=0)
-    m = hh.MonteCarlo(hh.HestonDynamics(), hh.HestonExactMixing(use_kernel=True), cfg)
-    with pytest.raises(TypeError, match="vanilla payoffs only"):
-        hh.solve(prob, m)
-
-
 def test_analytic_greek_rejects_digital():
     prob = hh.PricingProblem(_digital(), _bs_market())
     with pytest.raises(TypeError, match="VANILLA"):

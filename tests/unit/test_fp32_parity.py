@@ -1,7 +1,7 @@
-"""fp32-vs-fp64 tolerance tier (SURVEY §4 TPU-specific tests).
+"""fp32-vs-fp64 tolerance tier (SURVEY §4 accelerator-specific tests).
 
-The Pallas kernels run fp32; these tests pin the numerical contract of the
-step math itself: one QE/Euler step evaluated in fp32 must match the fp64
+The fp32 options run the step math in fp32; these tests pin its numerical
+contract: one QE/Euler step evaluated in fp32 must match the fp64
 evaluation within a few fp32 ulps across a wide state range, so 100-step
 accumulation stays ~1e-5 relative — far below the 5bp MC accuracy budget."""
 

@@ -180,10 +180,6 @@ def test_calibration_recovers_jump_parameters():
 def test_guards():
     with pytest.raises(ValueError, match="eta_up must exceed 1"):
         hh.KouInputs(REF, 0.05, 100.0, 0.16, 1.0, 0.4, 0.9, 5.0)
-    with pytest.raises(TypeError, match="no fused kernel"):
-        hh.solve(hh.PricingProblem(_opt(), _market()),
-                 hh.MonteCarlo(hh.KouJumpDynamics(), hh.EulerMaruyama(use_kernel=True),
-                               hh.SimulationConfig(trajectories=256, steps=2, seed=0)))
     # barrier grids reject jump dynamics (no Brownian-bridge correction)
     doc = hh.BarrierOption(100.0, EXPIRY, 80.0)
     with pytest.raises(TypeError, match="barrier grids need"):

@@ -140,16 +140,24 @@ def test_qmc_bb_gbm_euler_long_path():
     assert rmse(True) < rmse(False) / 4
 
 
-def test_qmc_kernel_combo_rejected():
-    from hedgehog_tpu import BlackScholesInputs, EulerMaruyama
+def test_qmc_exact_mixing_deterministic_and_seeded():
+    """qmc=True drives the exact-mixing estimator from scrambled Sobol'
+    points: the same seed reproduces the price bit for bit, another seed
+    scrambles differently, and both land near Carr-Madan."""
+    from hedgehog_tpu import CarrMadan, HestonDynamics, HestonExactMixing, HestonInputs, solve
 
-    market = BlackScholesInputs(REF, 0.05, 100.0, 0.2)
+    market = HestonInputs(REF, 0.03, 100.0, 0.04, 2.0, 0.04, 0.3, -0.7)
     prob = PricingProblem(OPT, market)
-    cfg = SimulationConfig(trajectories=1024, steps=4, seed=0, qmc=True)
-    with pytest.raises(ValueError, match="qmc"):
-        from hedgehog_tpu import LognormalDynamics, simulate_terminal_prices
 
-        simulate_terminal_prices(prob, MonteCarlo(LognormalDynamics(), EulerMaruyama(use_kernel=True), cfg))
+    def price(seed):
+        cfg = SimulationConfig(trajectories=2048, steps=2, seed=seed, qmc=True)
+        return float(solve(prob, MonteCarlo(HestonDynamics(), HestonExactMixing(), cfg)).price)
+
+    cm = float(solve(prob, CarrMadan(1.0, 32.0, HestonDynamics())).price)
+    p0, p0_again, p1 = price(0), price(0), price(1)
+    assert p0 == p0_again
+    assert p0 != p1
+    assert abs(p0 - cm) / cm < 5e-3 and abs(p1 - cm) / cm < 5e-3
 
 
 def test_sharded_qmc_period_guard():

@@ -1,4 +1,4 @@
-"""Regression tests for code-review findings: TPU-safe solvers, array-strike
+"""Regression tests for code-review findings: LU-free solvers, array-strike
 vectorization, QE kernel RNG independence (pure-JAX mirror)."""
 
 import datetime as dt
@@ -141,8 +141,7 @@ def test_qe_exponential_branch_martingale():
 
 
 def test_qe_kernel_martingale_flag_cpu_path():
-    """HestonQE(martingale_correction=False, use_kernel=True) honors the flag
-    (CPU fallback mirrors the kernel contract)."""
+    """HestonQE(martingale_correction=False) honors the flag."""
     import datetime as dt
 
     from hedgehog_tpu import HestonQE, MonteCarlo, SimulationConfig, solve

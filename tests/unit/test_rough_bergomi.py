@@ -234,7 +234,7 @@ def test_forward_variance_curve():
 
 
 def test_fp32_fast_path_parity():
-    """RoughBergomiMixing(fp32=True) — the TPU serving path (bulk in f32,
+    """RoughBergomiMixing(fp32=True) — the f32 bulk path (bulk in f32,
     covariance/Cholesky/close in f64) — agrees with the f64 estimator at
     the statistical level and keeps AD greeks finite."""
     prob = hh.PricingProblem(_opt(), _market())

@@ -125,10 +125,6 @@ def test_sabr_unsupported_routes_raise():
         hh.solve(hh.PricingProblem(
             hh.VanillaOption(100.0, EXPIRY, hh.American(), hh.Put(), hh.Spot()), mkt),
             hh.SABRAnalytic())
-    cfg = hh.SimulationConfig(trajectories=128, steps=2)
-    with pytest.raises(TypeError, match="no fused kernel"):
-        hh.solve(hh.PricingProblem(_opt(), mkt),
-                 hh.MonteCarlo(hh.SABRDynamics(), hh.EulerMaruyama(use_kernel=True), cfg))
 
 
 def test_sabr_composes_with_lsm_and_asians():

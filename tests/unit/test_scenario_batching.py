@@ -1,6 +1,6 @@
 """Scenario-batch pricing (production risk-run shape): vmap over whole
 market-input pytrees — spot ladders, vol shocks, curve shifts — with one
-compiled program. The TPU-tier counterpart of the reference's serial
+compiled program. The batched counterpart of the reference's serial
 per-scenario loops."""
 
 import datetime as dt

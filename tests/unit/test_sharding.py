@@ -160,114 +160,3 @@ def test_sharded_new_model_families():
         p_1 = float(hh.solve(prob, method).price)
         # independent per-device streams: statistical, not bitwise, agreement
         assert p_sh == pytest.approx(p_1, rel=4e-2)
-
-
-def test_multislice_dcn_two_level_reduction():
-    """Virtual multi-slice (DCN) scaling (SURVEY §2c): a 2-slice × 4-device
-    mesh where payoff sums psum first over chips-in-slice (ICI) and then once
-    across slices (DCN).  Global-device-index RNG streams make the result
-    equal to the 1-D 8-device sharded price AND the single-device solve to
-    summation order."""
-    from hedgehog_tpu.parallel import (
-        make_multislice_mesh,
-        sharded_mc_price_multislice_fn,
-    )
-
-    market = HestonInputs(REF, 0.03, 100.0, 0.04, 2.0, 0.04, 0.3, -0.7)
-    prob = PricingProblem(PAYOFF, market)
-    cfg = SimulationConfig(
-        trajectories=8 * 512, steps=4, seed=7, variance_reduction=Antithetic()
-    )
-    method = MonteCarlo(HestonDynamics(), EulerMaruyama(), cfg)
-
-    mesh2d = make_multislice_mesh(2)
-    assert dict(zip(mesh2d.axis_names, mesh2d.devices.shape)) == {
-        "slice": 2, "paths": 4,
-    }
-    p_ms = float(jax.jit(sharded_mc_price_multislice_fn(method, mesh2d))(prob))
-    p_1d = float(sharded_mc_price(prob, method, make_paths_mesh()))
-    p_single = float(solve(prob, method).price)
-    # global-device-index streams ⇒ multi-slice ≡ 1-D sharded to psum order
-    assert p_ms == pytest.approx(p_1d, rel=1e-12, abs=1e-10)
-    # per-device PRNG streams differ from the single-device stream: agreement
-    # with the unsharded solve is statistical here (the bitwise single-device
-    # contract is the QMC case below)
-    assert p_ms == pytest.approx(p_single, rel=4e-2)
-    # (The QMC Sobol'-slice variant — multi-slice bitwise == single-device
-    # solve — is asserted by dryrun phase 5 and the slow-tier
-    # test_sharded_kernel_flagship_matches_single_device; repeating its two
-    # extra compiles here would blow the fast-tier budget.)
-
-
-def test_multislice_gradient_through_both_psums():
-    """Calibration-style gradient flows through the two-level (ICI, DCN)
-    reduction: multi-slice delta equals the 1-D sharded delta."""
-    from hedgehog_tpu.parallel import (
-        make_multislice_mesh,
-        sharded_mc_price_multislice_fn,
-    )
-
-    cfg = SimulationConfig(trajectories=8 * 1024, steps=1, seed=0)
-    method = MonteCarlo(LognormalDynamics(), BlackScholesExact(), cfg)
-    fn_ms = sharded_mc_price_multislice_fn(method, make_multislice_mesh(2))
-    fn_1d = sharded_mc_price_fn(method, make_paths_mesh())
-    d_ms = float(jax.grad(lambda s: fn_ms(SpotLens().set(BS_PROB, s)))(100.0))
-    d_1d = float(jax.grad(lambda s: fn_1d(SpotLens().set(BS_PROB, s)))(100.0))
-    assert d_ms == pytest.approx(d_1d, rel=1e-10, abs=1e-12)
-
-
-def test_multislice_uneven_slices_rejected():
-    from hedgehog_tpu.parallel import make_multislice_mesh
-
-    with pytest.raises(ValueError, match="slices"):
-        make_multislice_mesh(3)
-
-
-def test_sharded_kernel_flagship_matches_single_device():
-    """VERDICT r4 item 9 (solve level): the KERNEL-BACKED flagship
-    (HestonExactMixing(use_kernel=True), QMC) must produce the same price on
-    the 8-device sharded path as the single-device solve — the adapter's
-    device_id/point_offset Sobol'-slicing discipline exercised through
-    shard_map.  Off-TPU the adapter falls back to the pure-JAX estimator on
-    the SAME sliced Sobol' points, so equality here pins the slicing
-    contract the TPU kernel shares (ops/heston_exact_kernel.py adapter)."""
-    market = HestonInputs(REF, 0.03, 100.0, 0.04, 2.0, 0.04, 0.3, -0.7)
-    prob = PricingProblem(PAYOFF, market)
-    from hedgehog_tpu import HestonExactMixing
-
-    cfg = SimulationConfig(
-        trajectories=8 * 1024, steps=2, seed=11,
-        variance_reduction=Antithetic(), qmc=True,
-    )
-    method = MonteCarlo(HestonDynamics(), HestonExactMixing(use_kernel=True), cfg)
-    p_sh = float(sharded_mc_price(prob, method, make_paths_mesh()))
-    p_1 = float(solve(prob, method).price)
-    assert p_sh == pytest.approx(p_1, rel=1e-9, abs=1e-9)
-
-
-def test_kernel_sobol_slice_composition_interpret():
-    """VERDICT r4 item 9 (kernel bit-stream): the ACTUAL Pallas kernel (run
-    in interpret mode) must produce, for each disjoint point_offset slice of
-    ONE Sobol' sequence, exactly the values the full-range call produces on
-    those indices — the invariant that makes sharded == single-device on
-    real TPU kernels, asserted on the kernel's own bit arithmetic."""
-    import numpy as np
-
-    from hedgehog_tpu.ops.heston_exact_kernel import heston_exact_mixing_values
-
-    T = 1.0
-    args = (jnp.log(100.0), 0.04, 0.03, 2.0, 0.04, 0.3, -0.7, T / 2, 100.0, 1.0)
-    n_dev, per_dev = 4, 2048
-    full = np.asarray(heston_exact_mixing_values(
-        *args, n_paths=n_dev * per_dev, segments=2, seed=5, antithetic=True,
-        qmc=True, interpret=True,
-    ))
-    parts = [
-        np.asarray(heston_exact_mixing_values(
-            *args, n_paths=per_dev, segments=2, seed=5, antithetic=True,
-            qmc=True, point_offset=i * per_dev, interpret=True,
-        ))
-        for i in range(n_dev)
-    ]
-    np.testing.assert_array_equal(np.concatenate(parts, axis=-1).ravel(),
-                                  full.ravel())

@@ -137,8 +137,3 @@ def test_dividend_identity_and_guard():
     assert pq == pytest.approx(p0, abs=1e-9)
     with pytest.raises(ValueError, match="finite forward"):
         hh.VarianceGammaInputs(REF, 0.05, 100.0, 0.5, 2.0, 0.5)
-    with pytest.raises(TypeError, match="no fused kernel"):
-        hh.solve(hh.PricingProblem(vo, _market()),
-                 hh.MonteCarlo(hh.VarianceGammaDynamics(),
-                               hh.EulerMaruyama(use_kernel=True),
-                               hh.SimulationConfig(trajectories=256, steps=2, seed=0)))
